@@ -23,7 +23,10 @@
 //   K1 holds the tables of the whole matrix in one block's shared memory
 //   (the host sends a matrix here when rows <= MAX_ROWS and the tables fit
 //   K1_MAX_TABLE_BYTES, see ops/gf_kernels.py).  Each block walks a column
-//   tile of all n input rows and writes all rows output rows.
+//   tile of all n input rows and writes all rows output rows.  A thread
+//   owns 16 byte columns (four words, one 16-byte load per row) and
+//   issues the next row's load before the current row's lookups, so that
+//   enough bytes are in flight to cover the memory latency.
 //
 //   K2 is the banded form for fat matrices (CLAY repair [64, 176] needs
 //   ~360 KB of tables).  A block stages its column tile of the n inputs in
@@ -41,7 +44,7 @@
 namespace {
 
 constexpr int K1_THREADS = 256;
-constexpr int K1_WORDS_PER_THREAD = 4;  // 4096 byte columns per block
+constexpr int K1_VECS_PER_THREAD = 2;  // 16-byte vectors: 8192 byte columns per block
 constexpr int K2_THREADS = 128;         // 512 byte columns per block
 
 // One segment descriptor is four int64: input pointer, input row stride
@@ -69,6 +72,13 @@ __device__ __forceinline__ bool words_aligned(const Segment& g, const uint8_t* o
          (g.out_col & 3) == 0;
 }
 
+__device__ __forceinline__ bool vecs_aligned(const Segment& g, const uint8_t* out,
+                                             long long out_stride) {
+  return (reinterpret_cast<uintptr_t>(g.in) & 15) == 0 && (g.stride & 15) == 0 &&
+         (reinterpret_cast<uintptr_t>(out) & 15) == 0 && (out_stride & 15) == 0 &&
+         (g.out_col & 15) == 0;
+}
+
 // Bytes [c, c+4) of a row as one little-endian word; bytes past len read 0.
 __device__ __forceinline__ uint32_t load_word(const uint8_t* row, long long c,
                                               long long len, bool aligned) {
@@ -87,6 +97,34 @@ __device__ __forceinline__ void store_word(uint8_t* row, long long c, long long 
   }
   for (int b = 0; b < 4; ++b)
     if (c + b < len) row[c + b] = static_cast<uint8_t>(v >> (8 * b));
+}
+
+// Bytes [c, c+16) of a row as four words; bytes past len read 0.
+struct Vec {
+  uint32_t w[4];
+};
+
+__device__ __forceinline__ Vec load_vec(const uint8_t* row, long long c, long long len,
+                                        bool aligned16, bool aligned4) {
+  Vec v;
+  if (aligned16 && c + 16 <= len) {
+    const uint4 q = *reinterpret_cast<const uint4*>(row + c);
+    v.w[0] = q.x; v.w[1] = q.y; v.w[2] = q.z; v.w[3] = q.w;
+    return v;
+  }
+#pragma unroll
+  for (int k = 0; k < 4; ++k) v.w[k] = load_word(row, c + 4 * k, len, aligned4);
+  return v;
+}
+
+__device__ __forceinline__ void store_vec(uint8_t* row, long long c, long long len,
+                                          bool aligned16, bool aligned4, const uint32_t (&v)[4]) {
+  if (aligned16 && c + 16 <= len) {
+    *reinterpret_cast<uint4*>(row + c) = make_uint4(v[0], v[1], v[2], v[3]);
+    return;
+  }
+#pragma unroll
+  for (int k = 0; k < 4; ++k) store_word(row, c + 4 * k, len, aligned4, v[k]);
 }
 
 // Bytes y0..y3 (each < 8) -> __byte_perm selector nibbles at bits 0/4/8/12.
@@ -134,6 +172,28 @@ __device__ __forceinline__ void mul_add_rows(uint32_t (&acc)[MAXR], const uint4*
   }
 }
 
+// The same for four words at once: each table entry is read once for all
+// four.
+template <int MAXR>
+__device__ __forceinline__ void mul_add_rows4(uint32_t (&acc)[MAXR][4], const uint4* tab,
+                                              int n, int j, int nrows, const Vec& x) {
+  Nibbles nb[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) nb[k] = split_word(x.w[k]);
+  const uint4* tj = tab + 2 * j;
+#pragma unroll
+  for (int i = 0; i < MAXR; ++i) {
+    if (i < nrows) {
+      const uint4 lo = tj[2 * n * i];
+      const uint4 hi = tj[2 * n * i + 1];
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        acc[i][k] ^= lookup(lo, nb[k].sel_lo, nb[k].top_lo) ^
+                     lookup(hi, nb[k].sel_hi, nb[k].top_hi);
+    }
+  }
+}
+
 template <int MAXR>
 __global__ void __launch_bounds__(K1_THREADS)
 gf_apply_k1(const uint4* __restrict__ tables, int rows, int n,
@@ -142,24 +202,31 @@ gf_apply_k1(const uint4* __restrict__ tables, int rows, int n,
   extern __shared__ uint4 tab[];  // rows * n * 2
   const Segment g = load_segment(segs, blockIdx.y);
   const long long tile0 =
-      static_cast<long long>(blockIdx.x) * (K1_THREADS * K1_WORDS_PER_THREAD * 4);
+      static_cast<long long>(blockIdx.x) * (K1_THREADS * K1_VECS_PER_THREAD * 16);
   if (tile0 >= g.len) return;  // whole block: this segment is shorter
   for (int t = threadIdx.x; t < rows * n * 2; t += K1_THREADS) tab[t] = tables[t];
   __syncthreads();
-  const bool aligned = words_aligned(g, out, out_stride);
+  const bool a4 = words_aligned(g, out, out_stride);
+  const bool a16 = vecs_aligned(g, out, out_stride);
   uint8_t* out_seg = out + g.out_col;
-  for (int w = 0; w < K1_WORDS_PER_THREAD; ++w) {
-    const long long c = tile0 + 4LL * (w * K1_THREADS + threadIdx.x);
+  for (int v = 0; v < K1_VECS_PER_THREAD; ++v) {
+    const long long c = tile0 + 16LL * (v * K1_THREADS + threadIdx.x);
     if (c >= g.len) break;
-    uint32_t acc[MAXR];
-#pragma unroll
-    for (int i = 0; i < MAXR; ++i) acc[i] = 0;
-    for (int j = 0; j < n; ++j)
-      mul_add_rows<MAXR>(acc, tab, n, j, rows,
-                         load_word(g.in + j * g.stride, c, g.len, aligned));
+    uint32_t acc[MAXR][4];
 #pragma unroll
     for (int i = 0; i < MAXR; ++i)
-      if (i < rows) store_word(out_seg + i * out_stride, c, g.len, aligned, acc[i]);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) acc[i][k] = 0;
+    Vec x = load_vec(g.in, c, g.len, a16, a4);
+    for (int j = 0; j < n; ++j) {
+      Vec next = x;
+      if (j + 1 < n) next = load_vec(g.in + (j + 1) * g.stride, c, g.len, a16, a4);
+      mul_add_rows4<MAXR>(acc, tab, n, j, rows, x);
+      x = next;
+    }
+#pragma unroll
+    for (int i = 0; i < MAXR; ++i)
+      if (i < rows) store_vec(out_seg + i * out_stride, c, g.len, a16, a4, acc[i]);
   }
 }
 
@@ -205,7 +272,7 @@ template <int MAXR>
 int launch_k1(const void* tables, int rows, int n, const void* segs, int nseg,
               long long max_len, void* out, long long out_stride, void* stream) {
   const size_t smem = 32ull * rows * n;
-  const long long cols = K1_THREADS * K1_WORDS_PER_THREAD * 4;
+  const long long cols = K1_THREADS * K1_VECS_PER_THREAD * 16;
   const dim3 grid(static_cast<unsigned>((max_len + cols - 1) / cols),
                   static_cast<unsigned>(nseg));
   const cudaError_t err = cudaFuncSetAttribute(

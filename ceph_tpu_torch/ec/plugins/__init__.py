@@ -1,0 +1,1 @@
+"""The codec plugins of the port: rs, shec, clay."""

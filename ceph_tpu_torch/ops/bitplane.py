@@ -46,9 +46,6 @@ class TableCache:
         self._tables: OrderedDict[tuple[str, str], torch.Tensor] = OrderedDict()
         self._lock = Lock()
 
-    def __len__(self) -> int:
-        return len(self._tables)
-
     def get(self, mat: np.ndarray, device: torch.device,
             mat_key: str | None = None) -> torch.Tensor:
         key = (mat_key or matrix_digest(mat), str(device))

@@ -20,7 +20,9 @@ into build/ceph_tpu_torch/ and bound with ctypes (plain C interface).  The
 wrapper ``gf_apply`` launches a kernel for CUDA tensors and raises if the
 build or the launch fails; for CPU tensors it runs ``apply_matrix_plain``,
 the same function in plain PyTorch.  There is no fallback from one to the
-other.  ``LAUNCHES`` counts each kernel's launches.
+other.  ``prepare`` stages a launch without running it (so a benchmark
+can time the kernel apart from the host work of staging it).
+``LAUNCHES`` counts each kernel's launches.
 """
 from __future__ import annotations
 
@@ -203,43 +205,57 @@ def apply_matrix_plain(mat: np.ndarray, chunks: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------- wrapper
 
 
-def gf_apply(mat: np.ndarray, segments, tables: torch.Tensor | None = None
-             ) -> torch.Tensor:
-    """``mat [rows, n]`` applied to the column concatenation of
-    ``segments`` (each a [n, L_s] uint8 tensor, rows may be strided):
-    one [rows, sum L_s] output.
+class Launch:
+    """One checked, prepared kernel launch: segment descriptors on the
+    device, output allocated.  Calling it launches the kernel into
+    ``out`` (again on each call), counts the launch and returns ``out``."""
 
-    CUDA tensors: ONE launch of K1 or K2 (``kernel_for``) over every
-    segment, with no host-side concatenation or padding; ``tables`` is
-    the matrix's ``nibble_tables`` on the device, built here when not
-    given.  CPU tensors: ``apply_matrix_plain``."""
-    mat = np.ascontiguousarray(mat, dtype=np.uint8)
-    if mat.ndim != 2:
-        raise ValueError(f"matrix must be 2-D, got shape {mat.shape}")
-    rows, n = mat.shape
+    def __init__(self, name: str, args: tuple, out: torch.Tensor,
+                 keep: tuple):
+        self.name, self.out = name, out
+        self._args = args
+        self._keep = keep  # tensors the kernel reads, alive while this is
+
+    def __call__(self) -> torch.Tensor:
+        lib = library()
+        fn = lib.gf_apply_k1_launch if self.name == "gf_apply_k1" else lib.gf_apply_k2_launch
+        dev = self.out.device
+        with torch.cuda.device(dev):
+            rc = fn(*self._args, torch.cuda.current_stream(dev).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"{self.name} launch failed: CUDA error {rc}")
+        LAUNCHES[self.name] += 1
+        return self.out
+
+
+def _checked_segments(n: int, segments) -> list[torch.Tensor]:
     segs = list(segments)
     if not 0 < len(segs) <= 65535:  # the launch grid's y extent
         raise ValueError(f"{len(segs)} input segments: want 1..65535")
-    dev = segs[0].device
     for s in segs:
         if not isinstance(s, torch.Tensor) or s.dtype != torch.uint8 or s.dim() != 2:
             raise ValueError("each segment must be a 2-D uint8 tensor")
         if s.shape[0] != n:
             raise ValueError(f"segment has {s.shape[0]} rows, matrix wants {n}")
-        if s.device != dev:
-            raise ValueError(f"segments on {s.device} and {dev}")
+        if s.device != segs[0].device:
+            raise ValueError(f"segments on {s.device} and {segs[0].device}")
         if s.shape[1] > 1 and s.stride(1) != 1:
             raise ValueError("segment columns must be contiguous")
-    if dev.type == "cpu":
-        return apply_matrix_plain(mat, segs[0] if len(segs) == 1 else torch.cat(segs, 1))
+    return segs
+
+
+def prepare(mat: np.ndarray, segments, tables: torch.Tensor | None = None
+            ) -> Launch:
+    """Check the inputs of one K1/K2 launch on CUDA tensors and stage it
+    (see ``gf_apply``) without launching."""
+    mat = np.ascontiguousarray(mat, dtype=np.uint8)
+    rows, n = mat.shape
+    segs = _checked_segments(n, segments)
+    dev = segs[0].device
     if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
+        raise ValueError(f"the GF kernels run on CUDA tensors, not {dev}")
     total = sum(s.shape[1] for s in segs)
     out = torch.empty((rows, total), dtype=torch.uint8, device=dev)
-    if rows == 0 or total == 0:
-        return out
-    if n == 0:
-        return out.zero_()
     if tables is None:
         tables = torch.from_numpy(nibble_tables(mat)).to(dev)
     if (tables.dtype != torch.uint8 or tuple(tables.shape) != (rows, n, 32)
@@ -254,18 +270,31 @@ def gf_apply(mat: np.ndarray, segments, tables: torch.Tensor | None = None
         dev, non_blocking=True)
     max_len = max(s.shape[1] for s in segs)
     name = kernel_for(rows, n)
-    lib = library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        if name == "gf_apply_k1":
-            rc = lib.gf_apply_k1_launch(
-                tables.data_ptr(), rows, n, desc_dev.data_ptr(), len(segs),
-                max_len, out.data_ptr(), total, stream)
-        else:
-            rc = lib.gf_apply_k2_launch(
-                tables.data_ptr(), rows, n, k2_band_rows(n), desc_dev.data_ptr(),
-                len(segs), max_len, out.data_ptr(), total, stream)
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
-    LAUNCHES[name] += 1
-    return out
+    band = (k2_band_rows(n),) if name == "gf_apply_k2" else ()
+    args = (tables.data_ptr(), rows, n, *band, desc_dev.data_ptr(), len(segs),
+            max_len, out.data_ptr(), total)
+    return Launch(name, args, out, (tables, desc_dev, *segs))
+
+
+def gf_apply(mat: np.ndarray, segments, tables: torch.Tensor | None = None
+             ) -> torch.Tensor:
+    """``mat [rows, n]`` applied to the column concatenation of
+    ``segments`` (each a [n, L_s] uint8 tensor, rows may be strided):
+    one [rows, sum L_s] output.
+
+    CUDA tensors: ONE launch of K1 or K2 (``kernel_for``) over every
+    segment, with no host-side concatenation or padding; ``tables`` is
+    the matrix's ``nibble_tables`` on the device, built here when not
+    given.  CPU tensors: ``apply_matrix_plain``."""
+    mat = np.ascontiguousarray(mat, dtype=np.uint8)
+    if mat.ndim != 2:
+        raise ValueError(f"matrix must be 2-D, got shape {mat.shape}")
+    rows, n = mat.shape
+    segs = _checked_segments(n, segments)
+    dev = segs[0].device
+    if dev.type == "cpu":
+        return apply_matrix_plain(mat, segs[0] if len(segs) == 1 else torch.cat(segs, 1))
+    if rows == 0 or n == 0 or all(s.shape[1] == 0 for s in segs):
+        total = sum(s.shape[1] for s in segs)
+        return torch.zeros((rows, total), dtype=torch.uint8, device=dev)
+    return prepare(mat, segs, tables)()

@@ -82,3 +82,18 @@ def test_bad_inputs_raise(cuda):
         gf_apply(mat, [torch.zeros((3, 10), dtype=torch.int32, device=cuda)])
     with pytest.raises(ValueError):
         gf_apply(mat, [torch.zeros((10, 3), dtype=torch.uint8, device=cuda).t()])
+
+
+def test_prepared_launch_repeats(cuda):
+    """A staged launch (what chip_smoke.py times) relaunches into the same
+    output, counts every launch and gives the wrapper's bytes."""
+    rng = np.random.default_rng(9)
+    mat = _rand(rng, (4, 8))
+    segs = [torch.from_numpy(_rand(rng, (8, 5000))).to(cuda) for _ in range(3)]
+    launch = gf_kernels.prepare(mat, segs)
+    before = gf_kernels.LAUNCHES["gf_apply_k1"]
+    first = launch().clone()
+    second = launch()
+    torch.cuda.synchronize()
+    assert gf_kernels.LAUNCHES["gf_apply_k1"] == before + 2
+    assert torch.equal(first, second) and torch.equal(second, gf_apply(mat, segs))

@@ -159,6 +159,13 @@ def test_wrapper_rejects_bad_inputs(bad):
         gf_apply(np.ones((2, 3), np.uint8), bad())
 
 
+def test_prepare_wants_cuda_tensors():
+    """Staging a kernel launch for CPU tensors raises; only gf_apply picks
+    the plain version, and only for CPU tensors."""
+    with pytest.raises(ValueError, match="CUDA"):
+        gf_kernels.prepare(np.ones((2, 3), np.uint8), [torch.zeros((3, 8), dtype=torch.uint8)])
+
+
 def test_plain_version_column_chunks(monkeypatch):
     """The chunked loop gives the same bytes as one pass."""
     rng = np.random.default_rng(31)
