@@ -11,7 +11,7 @@ Differences from the reference, by design:
 - Chunks come in as uint8 torch tensors, numpy arrays or bytes instead of
   ceph::buffer::list, and come out as uint8 tensors on the codec's
   device (``cuda`` unless the codec was made with ``device="cpu"``).
-- Chunk ids are plain ints 0..k+m-1 (shard ids); chunk_mapping supported.
+- Chunk ids are plain ints 0..k+m-1 (shard ids).
 - Sub-chunks (CLAY) are expressed exactly as the reference's
   get_sub_chunk_count() / minimum_to_decode sub-chunk ranges.
 """
@@ -36,9 +36,6 @@ class ErasureCodeInterface(ABC):
 
     @abstractmethod
     def get_data_chunk_count(self) -> int: ...
-
-    def get_coding_chunk_count(self) -> int:
-        return self.get_chunk_count() - self.get_data_chunk_count()
 
     def get_sub_chunk_count(self) -> int:
         """1 for MDS codes; >1 for CLAY (reference: ErasureCodeInterface.h ::
@@ -68,20 +65,6 @@ class ErasureCodeInterface(ABC):
     def decode(
         self, want_to_read: set[int], chunks: dict, chunk_size: int
     ) -> dict[int, torch.Tensor]: ...
-
-    def get_chunk_mapping(self) -> list[int]:
-        return []
-
-    def supports_parity_delta(self) -> bool:
-        """True iff encode_chunks is BYTE-COLUMN-LOCAL and chunk
-        placement is the identity split: parity byte at column c depends
-        only on the k data bytes at column c.  That is exactly the
-        property the OSD's partial-stripe RMW parity-delta relies on
-        (delta window encode XORed into stored parity).  Packet-based
-        bitmatrix techniques, sub-chunked codes (CLAY), and
-        position-remapped codes (LRC) must return False — for them the
-        OSD falls back to full-stripe re-encode."""
-        return False
 
     def decode_concat(self, chunks: dict[int, np.ndarray]) -> bytes:
         """Reassemble the original byte stream from data chunks (reference:

@@ -312,10 +312,8 @@ class ClayCodec(ErasureCode):
 
     def repair_matrix_entry(self, lost: int,
                             helpers: tuple[int, ...]) -> tuple:
-        """(repair matrix, its stable digest) — the digest is computed
-        once at cache fill and keys the device bitmatrix cache, so the
-        recovery path's repeated repair applies stop paying a fresh
-        ``M.tobytes()`` host copy per rebuilt chunk (cephdma)."""
+        """(repair matrix, its stable digest): the digest is computed once
+        at cache fill and keys the device table cache."""
         key = (lost, helpers)
         cached = self._repair_mat_cache.get(key)
         if cached is not None:

@@ -55,13 +55,6 @@ class ErasureCodePluginRegistry:
                 raise KeyError(f"erasure code plugin {name!r} already registered")
             self._plugins[name] = plugin
 
-    def remove(self, name: str) -> None:
-        with self._lock:
-            self._plugins.pop(name, None)
-
-    def get(self, name: str) -> ErasureCodePlugin | None:
-        return self._plugins.get(name)
-
     def names(self) -> list[str]:
         return sorted(self._plugins)
 

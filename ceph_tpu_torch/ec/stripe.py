@@ -34,20 +34,10 @@ class StripeInfo:
     def shard_size(self, object_size: int) -> int:
         return self.object_stripes(object_size) * self.stripe_unit
 
-    def logical_to_stripe(self, offset: int) -> tuple[int, int]:
-        """logical byte offset -> (stripe number, offset within stripe)."""
-        return divmod(offset, self.stripe_width)
-
-    def chunk_of(self, offset: int) -> tuple[int, int]:
-        """logical byte offset -> (shard id, byte offset within that shard)."""
-        stripe, within = self.logical_to_stripe(offset)
-        chunk, chunk_off = divmod(within, self.stripe_unit)
-        return chunk, stripe * self.stripe_unit + chunk_off
-
     def shard_layout(self, data, device=None) -> torch.Tensor:
         """Object bytes (bytes, numpy or a 1-D uint8 tensor) -> [k,
-        shard_size] shard tensor on `device`, zero padded: byte b of the
-        object goes to shard chunk_of(b), in one reshape/transpose pass."""
+        shard_size] shard tensor on `device`, zero padded: chunk i of each
+        stripe goes to shard i, in one reshape/transpose pass."""
         dev = resolve_device(device)
         raw = as_bytes_tensor(data, dev).reshape(-1)
         size = raw.numel()

@@ -102,11 +102,3 @@ def gf_matmul(A, B):
     prod = GF_MUL_TABLE[A[:, None, :], B.T[None, :, :]]
     return np.bitwise_xor.reduce(prod, axis=2)
 
-
-def gf_mul_by_2_series(e: int, count: int) -> list[int]:
-    """[e, e*2, e*4, ...] in GF(2^8) — column generators of the bitmatrix."""
-    out = []
-    for _ in range(count):
-        out.append(e)
-        e = gf_mul(e, 2)
-    return out

@@ -69,10 +69,8 @@ TABLES = TableCache()
 
 def _apply(mat: np.ndarray, segments: list[torch.Tensor], device: torch.device,
            mat_key: str | None) -> torch.Tensor:
-    segs = [s if s.shape[1] <= 1 or s.stride(1) == 1 else s.contiguous()
-            for s in segments]
     tables = TABLES.get(mat, device, mat_key) if device.type == "cuda" else None
-    return gf_apply(mat, segs, tables=tables)
+    return gf_apply(mat, segments, tables=tables)
 
 
 def apply_matrix(mat: np.ndarray, chunks, device=None,
@@ -131,12 +129,9 @@ class BitplaneCodec:
         """[k, L_s] stripes -> one [m, sum L_s] parity tensor, one launch."""
         return fused_encode(self.coding, stripes, self.device, self.coding_digest)
 
-    def decode_matrix(self, available_rows: tuple[int, ...]) -> np.ndarray:
-        """Per-erasure-pattern inverted matrix, host-cached (the ISA-L
-        table-cache pattern)."""
-        return self._decode_entry(available_rows)[0]
-
     def _decode_entry(self, available_rows) -> tuple[np.ndarray, str]:
+        """Per-erasure-pattern inverted matrix and its digest, host-cached
+        (the ISA-L table-cache pattern)."""
         key = tuple(available_rows[: self.k])
         ent = self._decode_cache.get(key)
         if ent is None:
