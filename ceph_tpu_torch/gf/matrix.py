@@ -11,10 +11,9 @@ Vandermonde matrix systematic — NOT a textbook Vandermonde (SURVEY.md §2.1
 same algorithms independently; tests cross-check the two for every (k, m) in
 range.
 
-Provenance caveat (SURVEY.md §0): the reference mount was empty during the
-survey and this sandbox has no network, so these algorithms are written from
-the documented jerasure constructions and verified Python<->C++; they could
-not be diffed against the reference's own source this round.
+Provenance caveat (SURVEY.md §0): these algorithms are written from the
+documented jerasure constructions and verified Python<->C++; they were not
+diffed against the upstream jerasure source.
 
 Also here: element->bitmatrix expansion (reference:
 src/erasure-code/jerasure/jerasure/src/jerasure.c :: jerasure_matrix_to_bitmatrix)
