@@ -32,7 +32,13 @@
 //   ~360 KB of tables).  A block stages its column tile of the n inputs in
 //   shared memory once, then loops over row bands: it loads one band's
 //   tables, and writes that band's output rows.  The last band may be
-//   short; its missing rows are never computed or stored.
+//   short; its missing rows are never computed or stored.  When the tile
+//   of all n inputs does not fit beside a band's tables (n above
+//   ~227, e.g. CLAY(12,4,d=15) repair [256, 960]), the inputs go through
+//   in chunks of chunk_rows: for each band, each chunk's inputs and that
+//   chunk's slice of the band's tables are staged in turn, and the band's
+//   sums stay in registers across the chunks.  The inputs are then read
+//   once per band (through L2) instead of once.
 //
 // Several input segments (the stripes of a fused flush) go through one
 // launch: segment s is [n, len_s] at its own pointer and row stride and
@@ -230,37 +236,54 @@ gf_apply_k1(const uint4* __restrict__ tables, int rows, int n,
   }
 }
 
+// Rows [j0, j0 + nj) of the column tile into xs[jj * K2_THREADS + lane];
+// bytes past the segment's end read 0.
+__device__ __forceinline__ void stage_inputs(uint32_t* xs, const Segment& g, int j0, int nj,
+                                             long long c, bool live, bool aligned) {
+  for (int jj = 0; jj < nj; ++jj)
+    xs[jj * K2_THREADS + threadIdx.x] =
+        live ? load_word(g.in + (j0 + jj) * g.stride, c, g.len, aligned) : 0u;
+}
+
 template <int MAXR>
 __global__ void __launch_bounds__(K2_THREADS)
 gf_apply_k2(const uint4* __restrict__ tables, int rows, int n, int band_rows,
-            const long long* __restrict__ segs, uint8_t* __restrict__ out,
+            int chunk_rows, const long long* __restrict__ segs, uint8_t* __restrict__ out,
             long long out_stride) {
   extern __shared__ uint4 smem[];
-  uint4* tab = smem;                                            // band_rows*n*2
-  uint32_t* xs = reinterpret_cast<uint32_t*>(smem + band_rows * n * 2);  // n*K2_THREADS
+  uint4* tab = smem;                                         // band_rows*chunk_rows*2
+  uint32_t* xs =
+      reinterpret_cast<uint32_t*>(smem + band_rows * chunk_rows * 2);  // chunk_rows*K2_THREADS
   const Segment g = load_segment(segs, blockIdx.y);
   const long long tile0 = static_cast<long long>(blockIdx.x) * (K2_THREADS * 4);
   if (tile0 >= g.len) return;
   const bool aligned = words_aligned(g, out, out_stride);
   const long long c = tile0 + 4LL * threadIdx.x;
   const bool live = c < g.len;
-  // the column tile of all n inputs, read from device memory once
-  for (int j = 0; j < n; ++j)
-    xs[j * K2_THREADS + threadIdx.x] =
-        live ? load_word(g.in + j * g.stride, c, g.len, aligned) : 0u;
+  // one chunk: the column tile of all n inputs, read from device memory once
+  const bool one_chunk = chunk_rows >= n;
+  if (one_chunk) stage_inputs(xs, g, 0, n, c, live, aligned);
   uint8_t* out_seg = out + g.out_col;
   for (int r0 = 0; r0 < rows; r0 += band_rows) {
     const int nrows = min(band_rows, rows - r0);
-    __syncthreads();  // the previous band's tables are no longer read
-    const uint4* band = tables + 2LL * r0 * n;
-    for (int t = threadIdx.x; t < nrows * n * 2; t += K2_THREADS) tab[t] = band[t];
-    __syncthreads();
-    if (!live) continue;
     uint32_t acc[MAXR];
 #pragma unroll
     for (int i = 0; i < MAXR; ++i) acc[i] = 0;
-    for (int j = 0; j < n; ++j)
-      mul_add_rows<MAXR>(acc, tab, n, j, nrows, xs[j * K2_THREADS + threadIdx.x]);
+    for (int j0 = 0; j0 < n; j0 += chunk_rows) {
+      const int nj = min(chunk_rows, n - j0);
+      __syncthreads();  // the previous chunk's tables and inputs are no longer read
+      if (!one_chunk) stage_inputs(xs, g, j0, nj, c, live, aligned);
+      // entry (i, jj) of the chunk's tables at tab[2 * (i * nj + jj)]
+      for (int t = threadIdx.x; t < nrows * nj * 2; t += K2_THREADS) {
+        const int i = t / (2 * nj);
+        tab[t] = tables[2LL * ((r0 + i) * static_cast<long long>(n) + j0) + (t - i * 2 * nj)];
+      }
+      __syncthreads();
+      if (live)
+        for (int jj = 0; jj < nj; ++jj)
+          mul_add_rows<MAXR>(acc, tab, nj, jj, nrows, xs[jj * K2_THREADS + threadIdx.x]);
+    }
+    if (!live) continue;
 #pragma unroll
     for (int i = 0; i < MAXR; ++i)
       if (i < nrows)
@@ -299,11 +322,12 @@ int gf_apply_k1_launch(const void* tables, int rows, int n, const void* segs, in
   return launch_k1<16>(tables, rows, n, segs, nseg, max_len, out, out_stride, stream);
 }
 
-int gf_apply_k2_launch(const void* tables, int rows, int n, int band_rows,
+int gf_apply_k2_launch(const void* tables, int rows, int n, int band_rows, int chunk_rows,
                        const void* segs, int nseg, long long max_len, void* out,
                        long long out_stride, void* stream) {
-  // one band's tables + the n-row input tile (ops/gf_kernels.k2_smem_bytes)
-  const size_t smem = 32ull * band_rows * n + 4ull * K2_THREADS * n;
+  // one chunk of a band's tables + the chunk's input tile
+  // (ops/gf_kernels.k2_smem_bytes)
+  const size_t smem = 32ull * band_rows * chunk_rows + 4ull * K2_THREADS * chunk_rows;
   const long long cols = K2_THREADS * 4;
   dim3 grid(static_cast<unsigned>((max_len + cols - 1) / cols),
             static_cast<unsigned>(nseg));
@@ -311,7 +335,7 @@ int gf_apply_k2_launch(const void* tables, int rows, int n, int band_rows,
       gf_apply_k2<16>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   gf_apply_k2<16><<<grid, K2_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint4*>(tables), rows, n, band_rows,
+      static_cast<const uint4*>(tables), rows, n, band_rows, chunk_rows,
       static_cast<const long long*>(segs), static_cast<uint8_t*>(out), out_stride);
   return static_cast<int>(cudaGetLastError());
 }

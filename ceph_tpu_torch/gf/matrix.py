@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from .tables import gf_div, gf_inv, gf_mul
+from .tables import GF_MUL_TABLE, gf_div, gf_inv, gf_mul
 
 
 def vandermonde_coding_matrix(k: int, m: int) -> np.ndarray:
@@ -164,16 +164,14 @@ def matrix_to_bitmatrix(mat: np.ndarray, w: int = 8) -> np.ndarray:
     encode into pure XOR, which is what ops/gf_kernels.apply_matrix_plain
     runs.
     """
+    if w != 8:
+        raise ValueError(f"only w=8 is supported, got {w}")
+    mat = np.asarray(mat, dtype=np.uint8)
     rows, cols = mat.shape
-    bm = np.zeros((rows * w, cols * w), dtype=np.uint8)
-    for i in range(rows):
-        for j in range(cols):
-            e = int(mat[i, j])
-            for x in range(w):
-                for l in range(w):
-                    bm[i * w + l, j * w + x] = (e >> l) & 1
-                e = gf_mul(e, 2)
-    return bm
+    basis = np.left_shift(1, np.arange(w)).astype(np.uint8)     # x^x
+    prod = GF_MUL_TABLE[mat[:, :, None], basis[None, None, :]]  # [i, j, x]
+    bits = (prod[:, :, :, None] >> np.arange(w, dtype=np.uint8)) & 1  # [i, j, x, l]
+    return np.ascontiguousarray(bits.transpose(0, 3, 1, 2)).reshape(rows * w, cols * w)
 
 
 def _rref(A: np.ndarray, B: np.ndarray | None) -> list[int]:

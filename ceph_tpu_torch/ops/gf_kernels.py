@@ -12,8 +12,8 @@ The apply is bound by memory: it reads n*L bytes and writes rows*L bytes.
 The kernels look the products up in split-nibble tables (32 bytes per
 matrix entry, built here by ``nibble_tables``) held in shared memory.
 ``kernel_for`` is the rule that picks one: K1 holds the whole matrix's
-tables in one block; K2 stages the input tile once and walks the rows in
-bands of ``k2_band_rows(n)``.
+tables in one block; K2 stages the input tile and walks the rows in bands,
+taking the inputs in chunks when they do not all fit (``k2_layout``).
 
 The library is compiled by nvcc from the checkout's source at first use
 into build/ceph_tpu_torch/ and bound with ctypes (plain C interface).  The
@@ -81,20 +81,24 @@ def kernel_for(rows: int, n: int) -> str:
     return "gf_apply_k2"
 
 
-def k2_smem_bytes(n: int, band_rows: int) -> int:
-    """K2's shared memory per block: one band's tables + the input tile."""
-    return TABLE_BYTES_PER_ENTRY * band_rows * n + 4 * K2_THREADS * n
+def k2_smem_bytes(chunk_rows: int, band_rows: int) -> int:
+    """K2's shared memory per block: a band's tables for one chunk of
+    input rows + that chunk's input tile."""
+    return (TABLE_BYTES_PER_ENTRY * band_rows + 4 * K2_THREADS) * chunk_rows
 
 
-def k2_band_rows(n: int) -> int:
-    """Rows per K2 band: as many as fit beside the n-row input tile."""
-    fit = MAX_ROWS
-    while fit and k2_smem_bytes(n, fit) > SMEM_PER_BLOCK:
-        fit -= 1
-    if fit < 1:
-        raise ValueError(f"a matrix with n={n} input rows does not fit K2's "
-                         f"shared memory ({SMEM_PER_BLOCK} bytes)")
-    return fit
+def k2_layout(rows: int, n: int) -> tuple[int, int]:
+    """(band_rows, chunk_rows) of a K2 launch for a [rows, n] matrix.
+
+    A band is up to MAX_ROWS output rows (their sums live in registers).
+    The inputs go through in as few equal chunks as fit in shared memory
+    beside a band's tables: one chunk (the tile staged once) for n up to
+    227, e.g. CLAY(8,4,d=11) repair [64, 176]; five of 192 for
+    CLAY(12,4,d=15) repair [256, 960]."""
+    band = min(rows, MAX_ROWS)
+    cap = SMEM_PER_BLOCK // k2_smem_bytes(1, band)
+    chunks = -(-n // cap)
+    return band, -(-n // chunks)
 
 
 def nibble_tables(mat: np.ndarray) -> np.ndarray:
@@ -154,7 +158,7 @@ def library() -> ctypes.CDLL:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.gf_apply_k1_launch.argtypes = [p, i, i, p, i, ll, p, ll, p]
         lib.gf_apply_k1_launch.restype = i
-        lib.gf_apply_k2_launch.argtypes = [p, i, i, i, p, i, ll, p, ll, p]
+        lib.gf_apply_k2_launch.argtypes = [p, i, i, i, i, p, i, ll, p, ll, p]
         lib.gf_apply_k2_launch.restype = i
         _lib = lib
         return lib
@@ -244,13 +248,25 @@ def _checked_segments(n: int, segments) -> list[torch.Tensor]:
     return segs
 
 
+def _checked_matrix(mat) -> np.ndarray:
+    mat = np.ascontiguousarray(mat, dtype=np.uint8)
+    if mat.ndim != 2:
+        raise ValueError(f"matrix must be 2-D, got shape {mat.shape}")
+    return mat
+
+
 def prepare(mat: np.ndarray, segments, tables: torch.Tensor | None = None
             ) -> Launch:
     """Check the inputs of one K1/K2 launch on CUDA tensors and stage it
     (see ``gf_apply``) without launching."""
-    mat = np.ascontiguousarray(mat, dtype=np.uint8)
+    mat = _checked_matrix(mat)
+    return _prepare(mat, _checked_segments(mat.shape[1], segments), tables)
+
+
+def _prepare(mat: np.ndarray, segs: list[torch.Tensor],
+             tables: torch.Tensor | None) -> Launch:
+    """``prepare`` for a matrix and segments already checked."""
     rows, n = mat.shape
-    segs = _checked_segments(n, segments)
     dev = segs[0].device
     if dev.type != "cuda":
         raise ValueError(f"the GF kernels run on CUDA tensors, not {dev}")
@@ -270,8 +286,8 @@ def prepare(mat: np.ndarray, segments, tables: torch.Tensor | None = None
         dev, non_blocking=True)
     max_len = max(s.shape[1] for s in segs)
     name = kernel_for(rows, n)
-    band = (k2_band_rows(n),) if name == "gf_apply_k2" else ()
-    args = (tables.data_ptr(), rows, n, *band, desc_dev.data_ptr(), len(segs),
+    layout = k2_layout(rows, n) if name == "gf_apply_k2" else ()
+    args = (tables.data_ptr(), rows, n, *layout, desc_dev.data_ptr(), len(segs),
             max_len, out.data_ptr(), total)
     return Launch(name, args, out, (tables, desc_dev, *segs))
 
@@ -286,9 +302,7 @@ def gf_apply(mat: np.ndarray, segments, tables: torch.Tensor | None = None
     segment, with no host-side concatenation or padding; ``tables`` is
     the matrix's ``nibble_tables`` on the device, built here when not
     given.  CPU tensors: ``apply_matrix_plain``."""
-    mat = np.ascontiguousarray(mat, dtype=np.uint8)
-    if mat.ndim != 2:
-        raise ValueError(f"matrix must be 2-D, got shape {mat.shape}")
+    mat = _checked_matrix(mat)
     rows, n = mat.shape
     segs = _checked_segments(n, segments)
     dev = segs[0].device
@@ -297,4 +311,4 @@ def gf_apply(mat: np.ndarray, segments, tables: torch.Tensor | None = None
     if rows == 0 or n == 0 or all(s.shape[1] == 0 for s in segs):
         total = sum(s.shape[1] for s in segs)
         return torch.zeros((rows, total), dtype=torch.uint8, device=dev)
-    return prepare(mat, segs, tables)()
+    return _prepare(mat, segs, tables)()

@@ -30,9 +30,8 @@ import time
 import numpy as np
 
 SEED = 20261017
-#: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and dense int8 ops/s
+#: H100 SXM peak HBM bytes/s (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
-INT8_OPS_PER_S = 1.979e15
 OBJECTS = 256
 OBJECT_BYTES = 1 << 20
 STRIPE_UNIT = 4096
@@ -67,13 +66,12 @@ def time_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     return float(np.median([a.elapsed_time(b) for a, b in ev]))
 
 
-def bound(rows: int, n: int, L: int) -> tuple[float, str]:
-    """Least time (ms) for a [rows, n] apply over L columns: bytes moved
-    (n*L read, rows*L written) over HBM, or the bitplane product's int8
-    operations (2 * 8rows * 8n * L) over the tensor cores, the larger."""
-    t_bytes = (n + rows) * L / HBM_BYTES_PER_S * 1e3
-    t_ops = 2 * (8 * rows) * (8 * n) * L / INT8_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+def bound_ms(rows: int, n: int, L: int) -> float:
+    """Least time (ms) for a [rows, n] apply over L columns: the bytes it
+    must move (n*L read, rows*L written) over HBM.  The card has no unit
+    that does a GF(2^8) multiply-add as one operation, so there is no
+    peak rate to hold the rows*n*L multiply-adds against."""
+    return (n + rows) * L / HBM_BYTES_PER_S * 1e3
 
 
 def main() -> int:
@@ -89,7 +87,8 @@ def main() -> int:
         from ceph_tpu_torch.gf.reference_codec import encode_chunks as ref_encode
         from ceph_tpu_torch.ops import gf_kernels
         from ceph_tpu_torch.ops.bitplane import TABLES
-        from ceph_tpu_torch.ops.gf_kernels import apply_matrix_plain, gf_apply, kernel_for
+        from ceph_tpu_torch.ops.gf_kernels import (
+            apply_matrix_plain, gf_apply, k2_layout, kernel_for)
     except ImportError as e:
         print(f"chip_smoke: the ceph_tpu_torch package is missing ({e})", file=sys.stderr)
         return 1
@@ -112,7 +111,8 @@ def main() -> int:
     log(f"[2 build] {time.perf_counter() - t0:.1f} s; rule: K1 when rows <= "
         f"{gf_kernels.MAX_ROWS} and rows*n*{gf_kernels.TABLE_BYTES_PER_ENTRY} <= "
         f"{gf_kernels.K1_MAX_TABLE_BYTES} table bytes, else K2 in bands of "
-        f"k2_band_rows(n) rows")
+        f"up to {gf_kernels.MAX_ROWS} rows, the inputs in chunks that fit "
+        f"{gf_kernels.SMEM_PER_BLOCK} bytes of shared memory (k2_layout)")
     for line in gf_kernels.BUILD_LOG.splitlines():
         if "registers" in line or "spill" in line:
             log(f"    ptxas: {line.strip()}")
@@ -138,18 +138,28 @@ def main() -> int:
         against_plain(mat, x, "gf_apply_k1")
         log(f"[3 K1] {name} {mat.shape} x L=3000: bytes equal")
 
-    # 4. K2 against the plain version
+    # 4. K2 against the plain version; CLAY(12,4,d=15)'s [256, 960] repair
+    # takes its inputs in chunks
     clay = reg.factory({"plugin": "clay", "k": "8", "m": "4"})
     chunk = clay.get_chunk_size(8 * (4 << 20))
     Z = clay.get_sub_chunk_count()
     helpers = tuple(range(1, 12))
     M_rep = clay.repair_matrix(0, helpers)
     ragged = np.random.default_rng(SEED).integers(0, 256, (13, 40), dtype=np.uint8)
-    for name, mat in (("CLAY repair", M_rep), ("ragged", ragged)):
+    wide = reg.factory({"plugin": "clay", "k": "12", "m": "4", "d": "15"}
+                       ).repair_matrix(0, tuple(range(1, 16)))
+    for name, mat in (("CLAY repair", M_rep), ("ragged", ragged),
+                      ("CLAY(12,4,d=15) repair", wide)):
         x = rand_bytes(torch, (mat.shape[1], 3000), SEED + 7, dev)
         against_plain(mat, x, "gf_apply_k2")
-        log(f"[4 K2] {name} {mat.shape} x L=3000 (band rows "
-            f"{gf_kernels.k2_band_rows(mat.shape[1])}): bytes equal")
+        band, step = k2_layout(*mat.shape)
+        log(f"[4 K2] {name} {mat.shape} x L=3000 (bands of {band} rows, inputs "
+            f"in chunks of {step}): bytes equal")
+    # the chunked form's time at a CLAY(12,4,d=15) repair of ~4 MiB chunks
+    x = rand_bytes(torch, wide.shape[1:] + (16384,), SEED + 9, dev)
+    wide_ms = time_ms(torch, gf_kernels.prepare(wide, [x]), iters=10)
+    log(f"[4 K2] CLAY(12,4,d=15) repair [256, 960] x 16384: {wide_ms:.4f} ms, "
+        f"bound {bound_ms(256, 960, 16384):.4f} ms by bytes")
 
     # ---- the main path: counts set to 0 here, read after phase 8 ----
     gf_kernels.reset_launch_counts()
@@ -250,18 +260,18 @@ def main() -> int:
         ms = time_ms(torch, gf_kernels.prepare(mat, segs, tables), iters=20)
         wrapper_ms = time_ms(torch, lambda: gf_apply(mat, segs, tables=tables), iters=20)
         plain_ms = time_ms(torch, lambda: apply_matrix_plain(mat, whole), iters=3, warmup=1)
-        bound_ms, bound_by = bound(rows, n, L)
+        bound = bound_ms(rows, n, L)
         moved = (rows + n) * L
         kernels.append({
             "name": name, "route": "cuda", "source": "ceph_tpu_torch/csrc/gf_apply.cu",
             "replaces": replaces, "launches": launches[name], "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes",
             "library_ms": None, "wrapper_ms": wrapper_ms, "shape": shape,
             "bytes_moved": moved,
             "gib_per_s": moved / (ms * 1e-3) / 2**30, "card": card, "nvidia_smi": smi,
         })
         log(f"[9 {name}] {shape}: {ms:.4f} ms ({moved / (ms * 1e-3) / 2**30:.1f} GiB/s "
-            f"moved), bound {bound_ms:.4f} ms by {bound_by}, wrapper {wrapper_ms:.4f} ms, "
+            f"moved), bound {bound:.4f} ms by bytes, wrapper {wrapper_ms:.4f} ms, "
             f"plain {plain_ms:.3f} ms")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi)

@@ -1,7 +1,7 @@
 """The port's CUDA kernels on the card: K1 and K2 against the plain
 PyTorch version, byte for byte, at edge-case shapes (ragged lengths,
 unaligned and strided rows, several segments in one launch, short last
-K2 band).  Marked ``cuda``: each test skips without a card.  On a GPU
+K2 band, K2 taking its inputs in chunks).  Marked ``cuda``: each test skips without a card.  On a GPU
 machine (the JAX package is not needed):
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
@@ -32,6 +32,7 @@ def _rand(rng, shape):
 @pytest.mark.parametrize("rows,n,L", [
     (4, 8, 3000), (1, 2, 9001), (8, 8, 4096), (13, 5, 4101), (16, 32, 777),
     (64, 176, 1030), (13, 40, 300), (17, 3, 5000), (2, 400, 129),
+    (16, 228, 3001), (5, 2000, 1031), (256, 960, 1030),
 ])
 def test_kernel_matches_plain(cuda, rows, n, L):
     rng = np.random.default_rng(rows * 1000 + n)
@@ -45,7 +46,7 @@ def test_kernel_matches_plain(cuda, rows, n, L):
     np.testing.assert_array_equal(out.cpu().numpy(), apply_ref(mat, x.cpu().numpy()))
 
 
-@pytest.mark.parametrize("rows,n", [(4, 8), (64, 176)])
+@pytest.mark.parametrize("rows,n", [(4, 8), (64, 176), (256, 960)])
 def test_segments_strided_and_unaligned(cuda, rows, n):
     """One launch over views at odd offsets and row strides, with ragged
     and empty segments, equals the plain apply of their concatenation."""
@@ -72,6 +73,24 @@ def test_fused_encode_one_launch(cuda):
     assert gf_kernels.LAUNCHES["gf_apply_k1"] == before + 1
     want = np.concatenate([apply_ref(coding, s.cpu().numpy()) for s in stripes], axis=1)
     np.testing.assert_array_equal(par.cpu().numpy(), want)
+
+
+def test_clay_wide_repair(cuda):
+    """CLAY(12,4,d=15) repair: a [256, 960] matrix, K2 in input chunks."""
+    from ceph_tpu_torch.ec.registry import ErasureCodePluginRegistry
+
+    clay = ErasureCodePluginRegistry.instance().factory(
+        {"plugin": "clay", "k": "12", "m": "4", "d": "15"}, device=cuda)
+    L = 65 * clay.get_sub_chunk_count()  # sub-chunks of 65 bytes: unaligned words
+    data = torch.from_numpy(_rand(np.random.default_rng(15), (12, L))).to(cuda)
+    parity = clay.encode_chunks(data)
+    have = {i: data[i] for i in range(1, 12)}
+    have.update({12 + i: parity[i] for i in range(4)})
+    before = gf_kernels.LAUNCHES["gf_apply_k2"]
+    got = clay.decode({0}, have, L)
+    torch.cuda.synchronize()
+    assert gf_kernels.LAUNCHES["gf_apply_k2"] == before + 1
+    assert torch.equal(got[0], data[0])
 
 
 def test_bad_inputs_raise(cuda):

@@ -18,6 +18,7 @@ from ceph_tpu_torch import gf as tgf
 from ceph_tpu_torch.ec.interface import InvalidProfile
 from ceph_tpu_torch.ec.registry import ErasureCodePluginRegistry as TorchRegistry
 from ceph_tpu_torch.ec.state import codec_from_arrays, repair_matrix_name
+from ceph_tpu_torch.ops.gf_kernels import k2_layout, kernel_for
 
 CPU = "cpu"
 
@@ -120,6 +121,27 @@ def test_clay_encode_decode_repair_match_jax():
     have = {c: chunks[c] for c in helpers}
     got = tc.decode({0}, have, L)
     _same(jc.decode({0}, have, L), got)
+    np.testing.assert_array_equal(_np(got[0]), data[0])
+
+
+def test_clay_wide_repair_matches_jax():
+    """CLAY(12,4,d=15): q=4, Z=256, a [256, 960] repair matrix, which
+    K2 takes in input chunks on the card.  The matrix and the parity
+    equal the JAX package's, and the CPU repair rebuilds the chunk."""
+    profile = {"plugin": "clay", "k": "12", "m": "4", "d": "15"}
+    jc, tc = _jax(profile), _torch(profile)
+    helpers = tuple(range(1, 16))
+    M = tc.repair_matrix(0, helpers)
+    np.testing.assert_array_equal(jc.repair_matrix(0, helpers), M)
+    assert M.shape == (256, 960) and kernel_for(*M.shape) == "gf_apply_k2"
+    assert k2_layout(*M.shape)[1] < 960
+    L = 2 * tc.get_sub_chunk_count()
+    data = np.random.default_rng(12).integers(0, 256, (12, L), dtype=np.uint8)
+    parity = _np(tc.encode_chunks(data))
+    np.testing.assert_array_equal(parity, _np(jc.encode_chunks(data)))
+    have = {i: data[i] for i in helpers if i < 12}
+    have.update({i: parity[i - 12] for i in helpers if i >= 12})
+    got = tc.decode({0}, have, L)
     np.testing.assert_array_equal(_np(got[0]), data[0])
 
 

@@ -26,7 +26,7 @@ from ceph_tpu_torch.ops import gf_kernels
 from ceph_tpu_torch.ops.gf_kernels import (
     apply_matrix_plain,
     gf_apply,
-    k2_band_rows,
+    k2_layout,
     k2_smem_bytes,
     kernel_for,
     nibble_tables,
@@ -119,17 +119,21 @@ def test_kernel_rule(shape, want):
     assert kernel_for(*shape) == want
 
 
-@pytest.mark.parametrize("n", [1, 40, 176, 400])
-def test_k2_bands_fit_shared_memory(n):
-    rb = k2_band_rows(n)
-    assert 1 <= rb <= gf_kernels.MAX_ROWS
-    assert k2_smem_bytes(n, rb) <= gf_kernels.SMEM_PER_BLOCK
-    assert rb == gf_kernels.MAX_ROWS or k2_smem_bytes(n, rb + 1) > gf_kernels.SMEM_PER_BLOCK
-
-
-def test_k2_rejects_what_cannot_fit():
-    with pytest.raises(ValueError):
-        k2_band_rows(1000)
+@pytest.mark.parametrize("rows,n", [
+    (1, 1), (13, 40), (64, 176), (2, 400), (256, 960), (300, 5000),
+])
+def test_k2_bands_fit_shared_memory(rows, n):
+    """K2's band and input chunk fit a block's shared memory, the chunks
+    are equal and cover n, and n is chunked only when it must be."""
+    band, chunk = k2_layout(rows, n)
+    assert band == min(rows, gf_kernels.MAX_ROWS)
+    assert 1 <= chunk <= n
+    assert k2_smem_bytes(chunk, band) <= gf_kernels.SMEM_PER_BLOCK
+    chunks = -(-n // chunk)
+    assert -(-n // chunks) == chunk
+    if chunk < n:
+        assert k2_smem_bytes(n, band) > gf_kernels.SMEM_PER_BLOCK
+        assert k2_smem_bytes(-(-n // (chunks - 1)), band) > gf_kernels.SMEM_PER_BLOCK
 
 
 # ---- the wrapper on CPU tensors -------------------------------------------
