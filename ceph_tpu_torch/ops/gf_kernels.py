@@ -27,19 +27,14 @@ can time the kernel apart from the host work of staging it).
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
 from functools import lru_cache
-from pathlib import Path
 
 import numpy as np
 import torch
 
 from ..gf.matrix import matrix_to_bitmatrix
 from ..gf.tables import GF_MUL_TABLE
+from .nvcc import NvccLibrary
 
 #: accumulators a thread keeps: a K1 matrix or a K2 band has at most this
 #: many rows (csrc: the largest MAXR instantiation)
@@ -59,11 +54,6 @@ SMEM_PER_BLOCK = 232448
 KERNELS = ("gf_apply_k1", "gf_apply_k2")
 #: launches per kernel since the last reset_launch_counts()
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)
-
-SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "gf_apply.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ceph_tpu_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 #: float32 bitplane bytes the plain version materializes per column chunk
 _PLAIN_CHUNK_BYTES = 256 << 20
@@ -115,53 +105,21 @@ def nibble_tables(mat: np.ndarray) -> np.ndarray:
 # ---------------------------------------------------------------- build
 
 
-_lib: ctypes.CDLL | None = None
-_lib_lock = threading.Lock()
-#: nvcc's output from the build this process made (ptxas register and
-#: shared-memory report), empty when the library was already built
-BUILD_LOG = ""
+def _bind(lib: ctypes.CDLL) -> None:
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.gf_apply_k1_launch.argtypes = [p, i, i, p, i, ll, p, ll, p]
+    lib.gf_apply_k1_launch.restype = i
+    lib.gf_apply_k2_launch.argtypes = [p, i, i, i, i, p, i, ll, p, ll, p]
+    lib.gf_apply_k2_launch.restype = i
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
-    if cand.exists():
-        return str(cand)
-    raise RuntimeError("nvcc not found: the GF kernels need the CUDA toolkit")
+#: csrc/gf_apply.cu, compiled by nvcc at first use (ops/nvcc.py)
+LIBRARY = NvccLibrary("gf_apply.cu", _bind)
 
 
 def library() -> ctypes.CDLL:
-    """The kernels' shared library, compiled from SOURCE on first use.
-
-    The file name carries a hash of the source and flags, so an edited
-    source is rebuilt and a built one is reused."""
-    global _lib, BUILD_LOG
-    with _lib_lock:
-        if _lib is not None:
-            return _lib
-        src = SOURCE.read_bytes()
-        tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        path = BUILD_DIR / f"libgf_apply_{tag}.so"
-        if not path.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = path.with_suffix(f".{os.getpid()}.tmp")
-            proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                capture_output=True, text=True)
-            BUILD_LOG = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{BUILD_LOG}")
-            os.replace(tmp, path)
-        lib = ctypes.CDLL(str(path))
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.gf_apply_k1_launch.argtypes = [p, i, i, p, i, ll, p, ll, p]
-        lib.gf_apply_k1_launch.restype = i
-        lib.gf_apply_k2_launch.argtypes = [p, i, i, i, i, p, i, ll, p, ll, p]
-        lib.gf_apply_k2_launch.restype = i
-        _lib = lib
-        return lib
+    """The kernels' shared library, compiled from the source on first use."""
+    return LIBRARY.load()
 
 
 # ------------------------------------------------------------ plain version

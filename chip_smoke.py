@@ -1,31 +1,50 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's erasure-code data plane once on one GPU.
+"""Drive the PyTorch/CUDA port's main paths once on one GPU: the
+erasure-code data plane and batched CRUSH placement.
 
     python3 chip_smoke.py            (from the repo root; needs one CUDA card)
 
-It builds the GF(2^8) kernels (ceph_tpu_torch/csrc/gf_apply.cu) with nvcc,
-holds each against its plain PyTorch version, then drives the port's main
-path through the entry points a user calls: the RS(8,4) cauchy_good write
-of 256 objects of 1 MiB (256 MiB resident on the card) in one fused
-encode, their degraded read with shards {1, 4, 9, 11} lost, parity
-reconstruction, an RS(2,1) 128 MiB encode and decode, a SHEC(6,3,2)
-single-chunk decode and a CLAY(8,4,d=11) single-shard repair.  Every
-result is compared byte for byte.  The launch counters show which kernels
-the main path ran.  The last lines are the card, one ``kernels`` JSON
-object (each kernel's time beside its bound and its plain version's
-time), and ``{"ok": true, "device": {...}}``.  Any failure raises and the
-exit code is not 0; without a card, or without the ceph_tpu_torch package
-beside this script, it exits 1 and prints no result.
+It builds the kernels of ceph_tpu_torch/csrc/ with nvcc (one nvcc per
+source, all at once) and holds each against its plain PyTorch version.
 
-Data is random, made on the card from fixed seeds.  Imports torch, numpy
-and ceph_tpu_torch only.
+The erasure-code path (phases 3-9): the GF(2^8) kernels K1 and K2, then
+through the entry points a user calls, the RS(8,4) cauchy_good write of
+256 objects of 1 MiB (256 MiB resident on the card) in one fused encode,
+their degraded read with shards {1, 4, 9, 11} lost, parity
+reconstruction, an RS(2,1) 128 MiB encode and decode, a SHEC(6,3,2)
+single-chunk decode and a CLAY(8,4,d=11) single-shard repair, every
+result compared byte for byte.
+
+The placement path (phases 10-17), on the 1024-OSD map of 128 hosts x 8
+OSDs: the crush_ln probe in both forms over 2^25 values; K3 and
+ln_scores against their plain versions; then through
+CrushWrapper.do_rule_batch, the 10M-object replicated remap before and
+after host 17 goes out (minimal movement, no out OSD), an RS(8,4) pool's
+indep placement, a balancer weight-set, a 16-rack map with a
+multi-choose rule, and crushtool --test on the card against the CPU.
+Every placement is checked against the CPU mapper and the scalar mapper.
+
+For each path the launch counters are set to 0 just before it and read
+just after, and every kernel of the path must have launched.  The last
+lines are the card, one ``kernels`` JSON object (each kernel's time
+beside its bound and its plain version's time), and ``{"ok": true,
+"device": {...}}``.  Any failure raises and the exit code is not 0;
+without a card, or without the ceph_tpu_torch package beside this
+script, it exits 1 and prints no result.
+
+Data is random, made from fixed seeds.  Imports torch, numpy and
+ceph_tpu_torch only.
 """
 from __future__ import annotations
 
+import copy
+import io
 import json
 import subprocess
 import sys
+import threading
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -35,6 +54,24 @@ HBM_BYTES_PER_S = 3.35e12
 OBJECTS = 256
 OBJECT_BYTES = 1 << 20
 STRIPE_UNIT = 4096
+#: H100 SXM INT32 operations/s: 132 SMs x 64 INT32 lanes (Hopper white
+#: paper) at the card's 1980 MHz boost clock
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+#: INT32-pipe instructions (IADD3, LOP3, SHF, ISETP, SEL, VIADD, FLO, LEA)
+#: K3 executes per slot it walks, and ln_scores per element, in each
+#: crush_ln form: counted in the SASS of the sm_90a build (cuobjdump -sass,
+#: the executed path of the slot loop with the 64-bit divide subroutine).
+#: The IMADs of the same path issue to the FMA pipe and are not counted.
+K3_INT32_PER_SLOT = {"compute": 191, "table": 179}
+LN_SCORES_INT32_PER_ELEMENT = {"compute": 152, "table": 136}
+#: BASELINE config 5: the remap of 10M objects over a 1024-OSD map
+REMAP_OBJECTS = 10_000_000
+HOSTS, OSDS_PER_HOST, OUT_HOST = 128, 8, 17
+CRUSH_LANES = 1 << 18
+PLACEMENT_XS = 1 << 20
+CPU_CHECK_XS = 1 << 16
+SCALAR_CHECK_XS = 512
+PROBE_ELEMENTS = 1 << 25
 
 
 def log(msg: str) -> None:
@@ -74,6 +111,268 @@ def bound_ms(rows: int, n: int, L: int) -> float:
     return (n + rows) * L / HBM_BYTES_PER_S * 1e3
 
 
+def kernel_entry(name: str, replaces: str, shape: str, err: int, ms: float,
+                 plain_ms: float, ops_ms: float, bytes_ms: float,
+                 library_ms, card: str, smi: str, **extra) -> dict:
+    """One kernel of the placement path for the ``kernels`` line; its
+    ``launches`` are filled in from the main path's counts."""
+    return {
+        "name": name, "route": "cuda", "source": "ceph_tpu_torch/csrc/crush_straw2.cu",
+        "replaces": replaces, "launches": None, "max_abs_err": err, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": max(ops_ms, bytes_ms),
+        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "library_ms": library_ms, "shape": shape, "card": card, "nvidia_smi": smi,
+        **extra,
+    }
+
+
+def max_err(torch, got, want) -> int:
+    if got.shape != want.shape:
+        raise AssertionError(f"shape {tuple(got.shape)} against {tuple(want.shape)}")
+    return int((got.long() - want.long()).abs().max()) if got.numel() else 0
+
+
+def padded(row: list[int], n: int, none: int) -> list[int]:
+    return (row + [none] * n)[:n]
+
+
+def crush_slice(torch, dev, card: str, smi: str) -> list[dict]:
+    """Phases 10-17: the placement path on the card (see the docstring)."""
+    from ceph_tpu_torch.crush import (
+        ITEM_NONE, CrushWrapper, build_hierarchical_map, make_straw2_bucket)
+    from ceph_tpu_torch.crush.types import Rule, RuleOp, RuleStep
+    from ceph_tpu_torch.ops import crush_kernels as ck
+    from ceph_tpu_torch.tools import crushtool
+
+    entries = []
+    form = ck.K3_LN_FORM
+    g = torch.Generator(device=dev)
+
+    def rand(lo: int, hi: int, n: int, seed: int):
+        g.manual_seed(seed)
+        return torch.randint(lo, hi, (n,), dtype=torch.int32, device=dev, generator=g)
+
+    # 10. the probe: crush_ln computed (a) or looked up (b), 2^25 values
+    u = rand(0, 1 << 16, PROBE_ELEMENTS, SEED + 10)
+    plain = ck.crush_ln_stream_plain(u)
+    table = ck.ln_tables(dev)[2]
+    library = torch.index_select(table, 0, u)
+    check(torch.equal(library, plain), "index_select differs from the plain version")
+    plain_ms = time_ms(torch, lambda: ck.crush_ln_stream_plain(u), iters=5)
+    library_ms = time_ms(torch, lambda: torch.index_select(table, 0, u), iters=20)
+    bytes_ms = PROBE_ELEMENTS * 12 / HBM_BYTES_PER_S * 1e3
+    probe_ms = {}
+    replaces = {"compute": "perf_runs/probe_flat.py:48", "table": "perf_runs/probe_gather.py:33"}
+    for f in ck.LN_FORMS:
+        got = ck.crush_ln_stream(u, f)
+        torch.cuda.synchronize()
+        err = max_err(torch, got, plain)
+        check(err == 0, f"crush_ln_stream {f} differs from CRUSH_LN_TABLE[u]")
+        probe_ms[f] = time_ms(torch, lambda: ck.crush_ln_stream(u, f), iters=20)
+        entries.append(kernel_entry(
+            f"crush_ln_stream_{f}", replaces[f], f"u [{PROBE_ELEMENTS}] int32", err,
+            probe_ms[f], plain_ms, 0.0, bytes_ms, library_ms, card, smi))
+        log(f"[10 probe] crush_ln {f}: bytes equal over {PROBE_ELEMENTS} u, {probe_ms[f]:.4f} ms, "
+            f"bound {bytes_ms:.4f} ms by bytes, plain {plain_ms:.3f} ms, "
+            f"index_select {library_ms:.4f} ms")
+    log(f"[10 probe] faster form: {min(probe_ms, key=probe_ms.get)}; K3 runs {form}")
+    del u, plain, library
+
+    # 11. K3 and ln_scores against their plain versions, 2^18 lanes
+    w = CrushWrapper(build_hierarchical_map(HOSTS, OSDS_PER_HOST))
+    cm = w.compiled(dev)
+    x = rand(-(1 << 31), (1 << 31) - 1, CRUSH_LANES, SEED + 11)
+    r = rand(0, 50, CRUSH_LANES, SEED + 12)
+    items = cm.items[0].expand(CRUSH_LANES, -1).contiguous()  # the root's 128 hosts
+    got = ck.ln_scores(x, items, r)
+    err = max_err(torch, got, ck.ln_scores_plain(x, items, r))
+    check(err == 0, "ln_scores differs from its plain version")
+    ms = time_ms(torch, lambda: ck.ln_scores(x, items, r), iters=20)
+    ls_plain_ms = time_ms(torch, lambda: ck.ln_scores_plain(x, items, r), iters=3, warmup=1)
+    n = items.numel()
+    entries.append(kernel_entry(
+        "crush_ln_scores_k3", "ceph_tpu/ops/pallas_crush.py:176",
+        f"x, r [{CRUSH_LANES}], items [{CRUSH_LANES}, 128] (the root row)", err, ms,
+        ls_plain_ms, n * LN_SCORES_INT32_PER_ELEMENT[form] / INT32_OPS_PER_S * 1e3,
+        (12 * n + 8 * CRUSH_LANES) / HBM_BYTES_PER_S * 1e3, None, card, smi))
+    log(f"[11 K3] ln_scores [{CRUSH_LANES}, 128]: equal to the plain version, {ms:.4f} ms")
+    mixed = build_hierarchical_map(HOSTS, OSDS_PER_HOST)
+    mixed.buckets[-7].weights[3] = 0  # host5's osd.43 draws S64_MIN
+    empty = make_straw2_bucket(mixed, 1, [], [], name="empty")
+    mcm = CrushWrapper(mixed).compiled(dev)
+    bidx = torch.where(rand(0, 2, CRUSH_LANES, SEED + 13) == 0, 0,
+                       rand(1, mcm.n_idx, CRUSH_LANES, SEED + 14)).to(torch.int32)
+    zeros = torch.zeros_like(x)
+    args = (mcm.items, mcm.weights, mcm.sizes, bidx, x, r, zeros)
+    got = ck.straw2_choose(*args)
+    err = max_err(torch, got, ck.straw2_choose_plain(*args))
+    check(err == 0, "straw2_choose differs from its plain version")
+    check(bool((got[bidx == -1 - empty.id] == ITEM_NONE).all()), "an empty bucket chose")
+    check(not bool((got == 43).any()), "a zero-weight slot won")
+    log(f"[11 K3] straw2_choose, {CRUSH_LANES} lanes over the root and {HOSTS} hosts, one "
+        f"zero-weight slot, one empty bucket: equal to the plain version")
+
+    # ---- the placement path: counts set to 0 here, read after phase 16 ----
+    ck.reset_launch_counts()
+    per_phase = {}
+
+    def k3() -> int:
+        return ck.LAUNCHES["crush_straw2_k3"]
+
+    # 12. replicated remap, BASELINE config 5: 10M objects, host 17 out
+    k0 = k3()
+    weights = np.full(HOSTS * OSDS_PER_HOST, 0x10000, dtype=np.int64)
+    xs = torch.arange(REMAP_OBJECTS, dtype=torch.int32, device=dev)
+    t0 = time.perf_counter()
+    before = w.do_rule_batch(0, xs, 3, weights)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    again = w.do_rule_batch(0, xs, 3, weights)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    check(torch.equal(before, again), "two remaps of the same map differ")
+    check(bool(((before != ITEM_NONE).sum(1) == 3).all()), "a mapping holds fewer than 3 OSDs")
+    out = torch.arange(OUT_HOST * OSDS_PER_HOST, (OUT_HOST + 1) * OSDS_PER_HOST,
+                       dtype=torch.int32, device=dev)
+    weights_out = weights.copy()
+    weights_out[out.cpu().numpy()] = 0
+    t0 = time.perf_counter()
+    after = w.do_rule_batch(0, xs, 3, weights_out)
+    torch.cuda.synchronize()
+    out_s = time.perf_counter() - t0
+    check(not bool(torch.isin(after, out).any()), "a mapping holds an out OSD")
+    held = torch.isin(before, out).any(1)
+    check(torch.equal(before[~held], after[~held]), "a mapping without host 17 moved")
+    moved = float((before != after).any(1).float().mean())
+    for name, wv, got in (("before", weights, before), ("after", weights_out, after)):
+        cpu = w.do_rule_batch(0, np.arange(CPU_CHECK_XS), 3, wv, device="cpu")
+        check(torch.equal(cpu, got[:CPU_CHECK_XS].cpu()), f"remap {name}: CPU mapper differs")
+        for xv in np.linspace(0, REMAP_OBJECTS - 1, SCALAR_CHECK_XS).astype(np.int64):
+            want = padded(w.do_rule(0, int(xv), 3, list(wv)), 3, ITEM_NONE)
+            check(got[xv].tolist() == want, f"remap {name}: scalar mapper differs at x={xv}")
+    per_phase[12] = k3() - k0
+    log(f"[12 remap] {REMAP_OBJECTS} objects x 3 replicas over {HOSTS * OSDS_PER_HOST} "
+        f"OSDs: {REMAP_OBJECTS / warm_s:.0f} maps/s ({warm_s:.3f} s; first call "
+        f"{cold_s:.3f} s), host {OUT_HOST} out {out_s:.3f} s, {moved:.5f} of objects "
+        f"moved, none kept an out OSD, none without host {OUT_HOST} moved; equal to "
+        f"the CPU mapper on {CPU_CHECK_XS} and the scalar mapper on {SCALAR_CHECK_XS} "
+        f"xs; card {card}, {smi}")
+    del again, after
+
+    xs_p = torch.arange(PLACEMENT_XS, dtype=torch.int32, device=dev)
+    spot = np.linspace(0, PLACEMENT_XS - 1, SCALAR_CHECK_XS).astype(np.int64)
+
+    def against_scalar(wr, rule: int, nrep: int, got, what: str, choose_args=None) -> None:
+        for xv in spot:
+            want = padded(wr.do_rule(rule, int(xv), nrep, list(weights), choose_args),
+                          nrep, ITEM_NONE)
+            check(got[xv].tolist() == want, f"{what}: scalar mapper differs at x={xv}")
+
+    # 13. an RS(8,4) pool: chooseleaf indep host, 12 positions
+    k0 = k3()
+    t0 = time.perf_counter()
+    ec = w.do_rule_batch(1, xs_p, 12, weights)
+    torch.cuda.synchronize()
+    ec_s = time.perf_counter() - t0
+    against_scalar(w, 1, 12, ec, "EC indep")
+    per_phase[13] = k3() - k0
+    log(f"[13 EC] rule 1 (chooseleaf indep host) x 12 over {PLACEMENT_XS} xs: {ec_s:.3f} s, "
+        f"{int((ec == ITEM_NONE).sum())} holes; equal to the scalar mapper on "
+        f"{SCALAR_CHECK_XS} xs")
+
+    # 14. a balancer weight-set on the root (crush-compat choose_args)
+    k0 = k3()
+    wb = copy.deepcopy(w)
+    root = wb.map.buckets[-1]
+    noise = np.random.default_rng(SEED + 14).uniform(0.8, 1.2, root.size)
+    wb.set_choose_args("balancer", -1, [[int(v * e) for v, e in zip(root.weights, noise)]])
+    t0 = time.perf_counter()
+    bal = wb.do_rule_batch(0, xs_p, 3, weights, choose_args="balancer")
+    torch.cuda.synchronize()
+    bal_s = time.perf_counter() - t0
+    against_scalar(wb, 0, 3, bal, "balancer", "balancer")
+    per_phase[14] = k3() - k0
+    log(f"[14 balancer] rule 0 with the weight-set over {PLACEMENT_XS} xs: {bal_s:.3f} s, "
+        f"{float((bal != before[:PLACEMENT_XS]).any(1).float().mean()):.4f} of objects "
+        f"placed apart from the plain map; equal to the scalar mapper")
+
+    # 15. 16 racks: CHOOSE 3 racks, then CHOOSELEAF 1 host in each
+    k0 = k3()
+    rmap = build_hierarchical_map(HOSTS, OSDS_PER_HOST, racks=16)
+    rmap.rules[2] = Rule(rule_id=2, steps=[
+        RuleStep(RuleOp.TAKE, -1), RuleStep(RuleOp.CHOOSE_FIRSTN, 3, 2),
+        RuleStep(RuleOp.CHOOSELEAF_FIRSTN, 1, 1), RuleStep(RuleOp.EMIT)])
+    wr = CrushWrapper(rmap)
+    t0 = time.perf_counter()
+    rk = wr.do_rule_batch(2, xs_p, 3, weights)
+    torch.cuda.synchronize()
+    rk_s = time.perf_counter() - t0
+    against_scalar(wr, 2, 3, rk, "racks")
+    check(not bool((rk == ITEM_NONE).any()), "an object got fewer than 3 racks")
+    per_rack = HOSTS // 16 * OSDS_PER_HOST
+    racks = torch.sort(rk // per_rack, dim=1).values
+    check(bool(((racks[:, 1:] != racks[:, :-1]).all())), "two replicas in one rack")
+    per_phase[15] = k3() - k0
+    log(f"[15 racks] 16 racks, rule CHOOSE 3 rack / CHOOSELEAF 1 host over {PLACEMENT_XS} xs: "
+        f"{rk_s:.3f} s, three racks per object; equal to the scalar mapper")
+
+    # 16. crushtool --test on the card and on the CPU
+    k0 = k3()
+    mapfile = Path(__file__).resolve().parent / "build" / "chip_smoke" / "map.txt"
+    mapfile.parent.mkdir(parents=True, exist_ok=True)
+    mapfile.write_text(w.format_text())
+    argv = ["-i", str(mapfile), "--test", "--rule", "0", "--num-rep", "3",
+            "--max-x", "1023", "--show-utilization", "--show-bad-mappings"]
+    texts = []
+    for extra in ([], ["--device", "cpu"]):
+        buf = io.StringIO()
+        check(crushtool.main(argv + extra, out=buf) == 0, f"crushtool {extra} failed")
+        texts.append(buf.getvalue())
+    check(texts[0] == texts[1], "crushtool --test differs between cuda and cpu")
+    check("result size == 3:\t1024/1024" in texts[0], "crushtool found bad mappings")
+    per_phase[16] = k3() - k0
+    log(f"[16 crushtool] --test --max-x 1023: {len(texts[0].splitlines())} lines, the "
+        f"same on cuda and cpu")
+
+    torch.cuda.synchronize()
+    launches = dict(ck.LAUNCHES)
+    log(f"[placement path] launches {launches}; crush_straw2_k3 by phase {per_phase}")
+    check(launches["crush_straw2_k3"] > 0, "K3 was not launched on the placement path")
+    for phase, count in per_phase.items():
+        check(count > 0, f"phase {phase} placed without K3")
+
+    # 17. K3 at phase 12's shapes: its first root draw and first host draw
+    zeros = torch.zeros_like(xs)
+    root_args = (cm.items, cm.weights, cm.sizes, zeros, xs, zeros, zeros)
+    hosts = (-1 - ck.straw2_choose(*root_args)).contiguous()
+    host_args = (cm.items, cm.weights, cm.sizes, hosts, xs, zeros, zeros)
+    map_bytes = cm.items.numel() * 12 + cm.sizes.numel() * 4
+    for level, args in (("root", root_args), ("host", host_args)):
+        got = ck.straw2_choose(*args)
+        err = max_err(torch, got, ck.straw2_choose_plain(*args))
+        check(err == 0, f"straw2_choose at the {level} differs from its plain version")
+        slots = int(cm.sizes[args[3].long()].sum())
+        by_form = {}
+        for f in ck.LN_FORMS:  # both forms, for the record; the path runs `form`
+            ck.K3_LN_FORM = f
+            by_form[f] = time_ms(torch, lambda: ck.straw2_choose(*args), iters=10)
+        ck.K3_LN_FORM = form
+        k3_plain_ms = time_ms(torch, lambda: ck.straw2_choose_plain(*args), iters=2, warmup=1)
+        ops_ms = slots * K3_INT32_PER_SLOT[form] / INT32_OPS_PER_S * 1e3
+        bytes_ms = (16 * REMAP_OBJECTS + map_bytes) / HBM_BYTES_PER_S * 1e3
+        entries.append(kernel_entry(
+            "crush_straw2_k3", "ceph_tpu/ops/pallas_crush.py:176",
+            f"{REMAP_OBJECTS} lanes at the {level} ({slots} slots walked)", err,
+            by_form[form], k3_plain_ms, ops_ms, bytes_ms, None, card, smi,
+            ln_form=form, ms_by_form=by_form))
+        log(f"[17 K3] {level}: {by_form[form]:.4f} ms ({form}; {by_form} by form), "
+            f"bound {max(ops_ms, bytes_ms):.4f} ms by operations, plain {k3_plain_ms:.1f} ms")
+    for e in entries:
+        e["launches"] = launches[e["name"]]
+    return entries
+
+
 def main() -> int:
     import torch
 
@@ -85,7 +384,7 @@ def main() -> int:
         from ceph_tpu_torch.ec.stripe import StripeInfo
         from ceph_tpu_torch.gf.matrix import decode_matrix_for, systematic_generator
         from ceph_tpu_torch.gf.reference_codec import encode_chunks as ref_encode
-        from ceph_tpu_torch.ops import gf_kernels
+        from ceph_tpu_torch.ops import crush_kernels, gf_kernels
         from ceph_tpu_torch.ops.bitplane import TABLES
         from ceph_tpu_torch.ops.gf_kernels import (
             apply_matrix_plain, gf_apply, k2_layout, kernel_for)
@@ -105,17 +404,33 @@ def main() -> int:
     log(f"[1 card] {card}; nvidia-smi: {smi}; torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
 
-    # 2. build
+    # 2. build every kernel library at once, one nvcc each
     t0 = time.perf_counter()
-    gf_kernels.library()
+    errors = []
+
+    def build(module) -> None:
+        try:
+            module.library()
+        except Exception as e:  # reported and raised below
+            errors.append(e)
+
+    builders = [threading.Thread(target=build, args=(m,))
+                for m in (gf_kernels, crush_kernels)]
+    for b in builders:
+        b.start()
+    for b in builders:
+        b.join()
+    if errors:
+        raise errors[0]
     log(f"[2 build] {time.perf_counter() - t0:.1f} s; rule: K1 when rows <= "
         f"{gf_kernels.MAX_ROWS} and rows*n*{gf_kernels.TABLE_BYTES_PER_ENTRY} <= "
         f"{gf_kernels.K1_MAX_TABLE_BYTES} table bytes, else K2 in bands of "
         f"up to {gf_kernels.MAX_ROWS} rows, the inputs in chunks that fit "
         f"{gf_kernels.SMEM_PER_BLOCK} bytes of shared memory (k2_layout)")
-    for line in gf_kernels.BUILD_LOG.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"    ptxas: {line.strip()}")
+    for lib in (gf_kernels.LIBRARY, crush_kernels.LIBRARY):
+        for line in lib.build_log.splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                log(f"    ptxas {lib.source.name}: {line.strip()}")
 
     def against_plain(mat, x, want_kernel: str) -> None:
         check(kernel_for(*mat.shape) == want_kernel,
@@ -273,6 +588,7 @@ def main() -> int:
         log(f"[9 {name}] {shape}: {ms:.4f} ms ({moved / (ms * 1e-3) / 2**30:.1f} GiB/s "
             f"moved), bound {bound:.4f} ms by bytes, wrapper {wrapper_ms:.4f} ms, "
             f"plain {plain_ms:.3f} ms")
+    kernels += crush_slice(torch, dev, card, smi)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -1,8 +1,11 @@
-"""The port's CUDA kernels on the card: K1 and K2 against the plain
-PyTorch version, byte for byte, at edge-case shapes (ragged lengths,
+"""The port's CUDA kernels on the card against their plain PyTorch
+versions, byte for byte, at edge-case shapes: K1 and K2 (ragged lengths,
 unaligned and strided rows, several segments in one launch, short last
-K2 band, K2 taking its inputs in chunks).  Marked ``cuda``: each test skips without a card.  On a GPU
-machine (the JAX package is not needed):
+K2 band, K2 taking its inputs in chunks); K3 (ragged lane counts, bucket
+widths 1 to 128, empty buckets, weight-set positions) and both forms of
+the crush_ln probe over every u; and the batch mapper on the card.
+Marked ``cuda``: each test skips without a card.  On a GPU machine (the
+JAX package is not needed):
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 """
@@ -116,3 +119,97 @@ def test_prepared_launch_repeats(cuda):
     torch.cuda.synchronize()
     assert gf_kernels.LAUNCHES["gf_apply_k1"] == before + 2
     assert torch.equal(first, second) and torch.equal(second, gf_apply(mat, segs))
+
+
+# ---- K3 and the crush_ln probe (ceph_tpu_torch/ops/crush_kernels.py) ----
+
+
+def _straw2_case(S, n_idx, P, B, seed):
+    """A random straw2 table: ragged sizes up to S (one empty bucket), a
+    zero-weight slot, weights up to a root's, P weight rows per bucket."""
+    rng = np.random.default_rng(seed)
+    sizes = rng.integers(1, S + 1, n_idx).astype(np.int32)
+    sizes[n_idx // 2] = 0
+    items = np.full((n_idx, S), -0x7FFFFFFE, dtype=np.int32)
+    weights = np.zeros((P * n_idx, S), dtype=np.int64)
+    for b in range(n_idx):
+        items[b, :sizes[b]] = rng.integers(-1000, 1000, sizes[b])
+        for p in range(P):
+            weights[p * n_idx + b, :sizes[b]] = rng.integers(0, 1 << 27, sizes[b])
+    weights[0, 0] = 0
+    lanes = [rng.integers(-1, n_idx + 1, B), rng.integers(-(1 << 31), 1 << 31, B),
+             rng.integers(0, 200, B), rng.integers(-1, P + 2, B)]
+    return [items, weights, sizes] + [a.astype(np.int32) for a in lanes]
+
+
+@pytest.mark.parametrize("S,n_idx,P,B", [
+    (1, 3, 1, 1000), (8, 17, 1, 4097), (128, 129, 1, 65537), (8, 9, 3, 3001),
+    (128, 5, 2, 777), (37, 11, 1, 1),
+])
+def test_straw2_choose_matches_plain(cuda, S, n_idx, P, B):
+    from ceph_tpu_torch.ops import crush_kernels
+
+    args = [torch.from_numpy(a).to(cuda) for a in _straw2_case(S, n_idx, P, B, S * B)]
+    before = crush_kernels.LAUNCHES["crush_straw2_k3"]
+    got = crush_kernels.straw2_choose(*args)
+    want = crush_kernels.straw2_choose_plain(*args)
+    torch.cuda.synchronize()
+    assert crush_kernels.LAUNCHES["crush_straw2_k3"] == before + 1
+    assert torch.equal(got, want)
+    cpu = crush_kernels.straw2_choose_plain(*[a.cpu() for a in args])
+    assert torch.equal(got.cpu(), cpu)
+
+
+@pytest.mark.parametrize("B,S", [(1, 1), (300, 8), (4097, 128), (64, 37)])
+def test_ln_scores_matches_plain(cuda, B, S):
+    from ceph_tpu_torch.ops import crush_kernels
+
+    rng = np.random.default_rng(B + S)
+    x = torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, B).astype(np.int32)).to(cuda)
+    r = torch.from_numpy(rng.integers(0, 100, B).astype(np.int32)).to(cuda)
+    items = torch.from_numpy(rng.integers(-500, 500, (B, S)).astype(np.int32)).to(cuda)
+    got = crush_kernels.ln_scores(x, items, r)
+    assert torch.equal(got, crush_kernels.ln_scores_plain(x, items, r))
+
+
+@pytest.mark.parametrize("form", ["compute", "table"])
+def test_ln_stream_every_u(cuda, form):
+    from ceph_tpu_torch.crush.ln_table import CRUSH_LN_TABLE
+    from ceph_tpu_torch.ops import crush_kernels
+
+    u = torch.arange(1 << 16, dtype=torch.int32, device=cuda).flip(0)
+    got = crush_kernels.crush_ln_stream(u, form)
+    np.testing.assert_array_equal(got.cpu().numpy(), CRUSH_LN_TABLE[::-1])
+
+
+@pytest.mark.parametrize("form", ["compute", "table"])
+def test_k3_both_forms_match(cuda, form, monkeypatch):
+    """Either crush_ln form gives K3 the same draws (the probe picks the
+    faster one)."""
+    from ceph_tpu_torch.ops import crush_kernels
+
+    monkeypatch.setattr(crush_kernels, "K3_LN_FORM", form)
+    args = [torch.from_numpy(a).to(cuda) for a in _straw2_case(128, 129, 2, 20000, 7)]
+    assert torch.equal(crush_kernels.straw2_choose(*args),
+                       crush_kernels.straw2_choose_plain(*args))
+
+
+def test_batch_mapper_on_the_card(cuda):
+    """The port's batch mapper on the card (every draw a K3 launch) equals
+    the same mapper on the CPU and the scalar mapper."""
+    from ceph_tpu_torch.crush import CrushWrapper, ITEM_NONE, build_hierarchical_map
+    from ceph_tpu_torch.ops import crush_kernels
+
+    w = CrushWrapper(build_hierarchical_map(32, 4, racks=4))
+    weights = np.full(128, 0x10000)
+    weights[[3, 40]] = 0
+    weights[9] = 0x8000
+    xs = np.arange(3000)
+    for rule, nrep in ((0, 3), (1, 6)):
+        before = crush_kernels.LAUNCHES["crush_straw2_k3"]
+        got = w.do_rule_batch(rule, xs, nrep, weights).cpu()
+        assert crush_kernels.LAUNCHES["crush_straw2_k3"] > before
+        assert torch.equal(got, w.do_rule_batch(rule, xs, nrep, weights, device="cpu"))
+        for x in range(0, 3000, 61):
+            exp = w.do_rule(rule, x, nrep, list(weights))
+            assert got[x].tolist() == (exp + [ITEM_NONE] * nrep)[:nrep]
