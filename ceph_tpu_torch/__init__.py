@@ -1,4 +1,4 @@
-"""ceph_tpu_torch — the PyTorch/CUDA port of ceph_tpu's erasure-code data plane.
+"""ceph_tpu_torch — the PyTorch/CUDA port of ceph_tpu.
 
 A second package beside the JAX reference (ceph_tpu/), laid out like it so
 each module's counterpart is easy to find.  It imports torch and numpy and
@@ -8,8 +8,10 @@ quietly running on the host.
 
 Ported so far: gf/ (tables, matrices, numpy referee), ops/ (the GF(2^8)
 matrix apply: two hand-written CUDA kernels in csrc/gf_apply.cu and their
-plain PyTorch version), ec/ (interface, registry, stripe math, the RS,
-SHEC and CLAY plugins).
+plain PyTorch version; the straw2 draw K3 and the crush_ln probe in
+csrc/crush_straw2.cu), ec/ (interface, registry, stripe math, the RS,
+SHEC and CLAY plugins), crush/ (map model, builder, scalar and batched
+mappers, CrushWrapper) and tools/crushtool.
 """
 from .common.device import resolve_device
 

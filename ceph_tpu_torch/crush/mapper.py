@@ -175,17 +175,6 @@ def compile_plan(cm: CompiledCrushMap, rule_id: int, numrep: int) -> list[dict]:
     return plan
 
 
-def compile_rule(cm: CompiledCrushMap, rule_id: int, numrep: int) -> dict:
-    """Single-choose plan of the canonical TAKE-CHOOSE-EMIT shape; raises
-    on anything else (multi-choose chains and EMIT-less rules go through
-    the step interpreter)."""
-    steps = compile_plan(cm, rule_id, numrep)
-    ops = [p["op"] for p in steps]
-    if ops != ["take", "choose", "emit"]:
-        raise NotImplementedError("not a TAKE-CHOOSE-EMIT rule")
-    return dict(steps[0], **steps[1])
-
-
 def _firstn_compact(work: torch.Tensor) -> torch.Tensor:
     """Dense-pack non-NONE entries left, preserving order (crush_do_rule
     concatenates each parent's successes contiguously into the working

@@ -208,11 +208,11 @@ def straw2_choose(items_tbl: torch.Tensor, weights_tbl: torch.Tensor,
     _check("sizes", sizes, torch.int32, 1, dev)
     if sizes.shape[0] != n_idx:
         raise ValueError(f"sizes has {sizes.shape[0]} buckets, items_tbl {n_idx}")
-    B = bucket_idx.shape[0] if isinstance(bucket_idx, torch.Tensor) else -1
     for name, t in (("bucket_idx", bucket_idx), ("x", x), ("r", r), ("position", position)):
         _check(name, t, torch.int32, 1, dev)
-        if t.shape[0] != B:
-            raise ValueError(f"{name} has {t.shape[0]} lanes, bucket_idx {B}")
+    B = bucket_idx.shape[0]
+    if any(t.shape[0] != B for t in (x, r, position)):
+        raise ValueError(f"x, r and position must have bucket_idx's {B} lanes")
     if dev.type == "cpu":
         return straw2_choose_plain(items_tbl, weights_tbl, sizes, bucket_idx, x, r, position)
     out = torch.empty((B,), dtype=torch.int32, device=dev)
