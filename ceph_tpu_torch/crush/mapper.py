@@ -27,6 +27,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..common.device import resolve_device
 from .batched import I64Engine, choose_firstn_b, choose_indep_b
 from .types import ITEM_NONE, CrushMap, RuleOp
 
@@ -73,11 +74,12 @@ def validate_choose_args(
 
 
 class CompiledCrushMap:
-    """Dense-tensor form of a CrushMap on one device."""
+    """Dense-tensor form of a CrushMap on one device (``cuda`` unless
+    given ``device="cpu"``)."""
 
-    def __init__(self, cmap: CrushMap, device: torch.device):
+    def __init__(self, cmap: CrushMap, device=None):
         self.cmap = cmap
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         ids = sorted(cmap.buckets)
         n_idx = max((-1 - bid for bid in ids), default=-1) + 1
         rows = max(n_idx, 1)

@@ -48,7 +48,7 @@ LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)
 #: shared memory, or one load from CRUSH_LN_TABLE
 LN_FORMS = {"compute": 0, "table": 1}
 #: the form K3 and ln_scores run: the faster one in the probe's run on an
-#: H100 (PERF.md, Findings PR 2)
+#: H100 (PERF.md, Findings)
 K3_LN_FORM = "compute"
 
 S64_MIN = -(1 << 63)
