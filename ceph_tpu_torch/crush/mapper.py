@@ -258,6 +258,16 @@ def _chunk_lanes(device: torch.device) -> int:
     return max(1 << 16, min(_MAX_CHUNK_LANES, free // _MEMORY_SHARE // _LANE_BYTES))
 
 
+def batch_chunk(cm: CompiledCrushMap, rule_id: int, numrep: int) -> int:
+    """The xs one pass of crush_do_rule_batch's interpreter takes on
+    `cm`'s device for this rule: its lane budget over the widest step."""
+    return _chunk_xs(cm.device, compile_plan(cm, rule_id, numrep))
+
+
+def _chunk_xs(device: torch.device, plan: list[dict]) -> int:
+    return max(1, _chunk_lanes(device) // _plan_width(plan))
+
+
 def crush_do_rule_batch(
     cm: CompiledCrushMap,
     rule_id: int,
@@ -287,7 +297,7 @@ def crush_do_rule_batch(
     else:
         xs_t = torch.from_numpy(np.asarray(xs, dtype=np.int64).astype(np.int32)).to(dev)
     N = xs_t.shape[0]
-    chunk_n = max(1, _chunk_lanes(dev) // _plan_width(plan))
+    chunk_n = _chunk_xs(dev, plan)
     if N <= chunk_n:
         return _run_plan(plan, eng, xs_t, numrep)
     return torch.cat([_run_plan(plan, eng, xs_t[lo:lo + chunk_n], numrep)

@@ -31,8 +31,9 @@
 //                   over RH_LH_TBL and LL_TBL (4 KB, staged in shared memory)
 //   LN_TABLE   (b): one load from CRUSH_LN_TABLE (512 KB of int64, served
 //                   from L2)
-// The probe times both over a flat stream; ops/crush_kernels.py names the
-// form K3 runs (K3_LN_FORM) and PERF.md records the measurement behind it.
+// The probe times both over a flat stream.  K3 and ln_scores are compiled
+// in one form, K3_LN_FORM: the table form, which was faster inside K3 on
+// an H100 though the probe's byte-bound stream favours (a) (PERF.md).
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -48,6 +49,8 @@ constexpr int LL_ENTRIES = 256;
 constexpr int BLOCKS_PER_SM = 8;
 
 enum LnForm { LN_COMPUTE = 0, LN_TABLE = 1 };
+// the one crush_ln form K3 and ln_scores are built with
+constexpr int K3_LN_FORM = LN_TABLE;
 
 struct LnTables {
   const long long* rh_lh;  // [258]
@@ -124,7 +127,6 @@ __device__ __forceinline__ long long crush_ln(uint32_t u, const SmemLn& s,
 
 // K3: for each lane, bucket_straw2_choose over bucket `bucket_idx` (clamped
 // to the table) with weights from row min(position, P-1) * n_idx + bucket.
-template <int FORM>
 __global__ void __launch_bounds__(THREADS) straw2_choose_kernel(
     const int* __restrict__ items, const long long* __restrict__ weights,
     const int* __restrict__ sizes, int n_idx, int S, int P,
@@ -132,7 +134,7 @@ __global__ void __launch_bounds__(THREADS) straw2_choose_kernel(
     const int* __restrict__ rs, const int* __restrict__ position, long long B,
     LnTables t, int* __restrict__ out) {
   __shared__ SmemLn s;
-  stage_tables<FORM>(s, t);
+  stage_tables<K3_LN_FORM>(s, t);
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   for (long long lane = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
        lane < B; lane += stride) {
@@ -154,7 +156,7 @@ __global__ void __launch_bounds__(THREADS) straw2_choose_kernel(
       long long draw = S64_MIN;
       if (wi > 0) {
         const uint32_t u = hash32_3(x, static_cast<uint32_t>(it[i]), r) & 0xFFFFu;
-        draw = (crush_ln<FORM>(u, s, t) - LN_BIAS) / wi;  // truncating, as div64_s64
+        draw = (crush_ln<K3_LN_FORM>(u, s, t) - LN_BIAS) / wi;  // truncating, as div64_s64
       }
       if (i == 0 || draw > high_draw) {
         high = i;
@@ -168,18 +170,17 @@ __global__ void __launch_bounds__(THREADS) straw2_choose_kernel(
 // The TPU kernel's function alone: out[e] = crush_ln(hash3(x, item, r) &
 // 0xffff) for every element e = lane * S + slot of a [B, S] block (B * S <
 // 2^31, checked by the host).
-template <int FORM>
 __global__ void __launch_bounds__(THREADS) ln_scores_kernel(
     const int* __restrict__ xs, const int* __restrict__ items,
     const int* __restrict__ rs, int n, int S, LnTables t, long long* __restrict__ out) {
   __shared__ SmemLn s;
-  stage_tables<FORM>(s, t);
+  stage_tables<K3_LN_FORM>(s, t);
   for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < n; e += gridDim.x * blockDim.x) {
     const int lane = e / S;
     const uint32_t u = hash32_3(static_cast<uint32_t>(xs[lane]),
                                 static_cast<uint32_t>(items[e]),
                                 static_cast<uint32_t>(rs[lane])) & 0xFFFFu;
-    out[e] = crush_ln<FORM>(u, s, t);
+    out[e] = crush_ln<K3_LN_FORM>(u, s, t);
   }
 }
 
@@ -214,11 +215,10 @@ LnTables tables(const void* rh_lh, const void* ll, const void* full) {
 }  // namespace
 
 // Each launcher enqueues one kernel on `stream` and returns
-// cudaGetLastError() (0 when the launch was accepted).  form: 0 = LN_COMPUTE,
-// 1 = LN_TABLE.
+// cudaGetLastError() (0 when the launch was accepted).
 
 extern "C" int crush_straw2_choose_launch(
-    int form, const void* items, const void* weights, const void* sizes, int n_idx, int S,
+    const void* items, const void* weights, const void* sizes, int n_idx, int S,
     int P, const void* bucket_idx, const void* x, const void* r, const void* position,
     long long B, const void* rh_lh, const void* ll, const void* full, void* out,
     void* stream) {
@@ -235,18 +235,12 @@ extern "C" int crush_straw2_choose_launch(
   const auto* rs = static_cast<const int*>(r);
   const auto* pos = static_cast<const int*>(position);
   auto* o = static_cast<int*>(out);
-  if (form == LN_COMPUTE)
-    straw2_choose_kernel<LN_COMPUTE><<<grid, THREADS, 0, st>>>(it, w, sz, n_idx, S, P, bi, xs,
-                                                               rs, pos, B, t, o);
-  else if (form == LN_TABLE)
-    straw2_choose_kernel<LN_TABLE><<<grid, THREADS, 0, st>>>(it, w, sz, n_idx, S, P, bi, xs,
-                                                             rs, pos, B, t, o);
-  else
-    return cudaErrorInvalidValue;
+  straw2_choose_kernel<<<grid, THREADS, 0, st>>>(it, w, sz, n_idx, S, P, bi, xs, rs, pos, B, t,
+                                                 o);
   return cudaGetLastError();
 }
 
-extern "C" int crush_ln_scores_launch(int form, const void* x, const void* items,
+extern "C" int crush_ln_scores_launch(const void* x, const void* items,
                                       const void* r, int B, int S, const void* rh_lh,
                                       const void* ll, const void* full, void* out,
                                       void* stream) {
@@ -258,15 +252,11 @@ extern "C" int crush_ln_scores_launch(int form, const void* x, const void* items
   const auto* it = static_cast<const int*>(items);
   const auto* rs = static_cast<const int*>(r);
   auto* o = static_cast<long long*>(out);
-  if (form == LN_COMPUTE)
-    ln_scores_kernel<LN_COMPUTE><<<grid_for(n), THREADS, 0, st>>>(xs, it, rs, n, S, t, o);
-  else if (form == LN_TABLE)
-    ln_scores_kernel<LN_TABLE><<<grid_for(n), THREADS, 0, st>>>(xs, it, rs, n, S, t, o);
-  else
-    return cudaErrorInvalidValue;
+  ln_scores_kernel<<<grid_for(n), THREADS, 0, st>>>(xs, it, rs, n, S, t, o);
   return cudaGetLastError();
 }
 
+// form: 0 = LN_COMPUTE, 1 = LN_TABLE.
 extern "C" int crush_ln_stream_launch(int form, const void* u, long long n,
                                       const void* rh_lh, const void* ll, const void* full,
                                       void* out, void* stream) {

@@ -20,7 +20,8 @@ weight)`` over the bucket's slots.  It is bound by integer operations
 ``ln_scores`` computes crush_ln of every (x, item, r), the function the
 TPU kernel computed; ``crush_ln_stream`` is the probe that times crush_ln's
 two forms, computed from the small tables (``"compute"``) or looked up in
-CRUSH_LN_TABLE (``"table"``).  K3 runs the form in ``K3_LN_FORM``.
+CRUSH_LN_TABLE (``"table"``).  K3 and ln_scores are built with the table
+form only (``K3_LN_FORM`` in the source).
 
 Each wrapper launches its kernel for CUDA tensors and raises if the build
 or the launch fails; for CPU tensors it runs the plain PyTorch version of
@@ -44,12 +45,9 @@ KERNELS = ("crush_straw2_k3", "crush_ln_scores_k3",
 #: launches per kernel since the last reset_launch_counts()
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)
 
-#: crush_ln's two forms (csrc LnForm): computed from RH_LH_TBL/LL_TBL in
-#: shared memory, or one load from CRUSH_LN_TABLE
+#: crush_ln's two forms in the probe (csrc LnForm): computed from
+#: RH_LH_TBL/LL_TBL in shared memory, or one load from CRUSH_LN_TABLE
 LN_FORMS = {"compute": 0, "table": 1}
-#: the form K3 and ln_scores run: the faster one in the probe's run on an
-#: H100 (PERF.md, Findings)
-K3_LN_FORM = "compute"
 
 S64_MIN = -(1 << 63)
 #: elements of [lanes, S] int64 the plain version works on at a time:
@@ -69,9 +67,9 @@ def reset_launch_counts() -> None:
 def _bind(lib: ctypes.CDLL) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.crush_straw2_choose_launch.argtypes = [
-        i, p, p, p, i, i, i, p, p, p, p, ll, p, p, p, p, p]
+        p, p, p, i, i, i, p, p, p, p, ll, p, p, p, p, p]
     lib.crush_straw2_choose_launch.restype = i
-    lib.crush_ln_scores_launch.argtypes = [i, p, p, p, i, i, p, p, p, p, p]
+    lib.crush_ln_scores_launch.argtypes = [p, p, p, i, i, p, p, p, p, p]
     lib.crush_ln_scores_launch.restype = i
     lib.crush_ln_stream_launch.argtypes = [i, p, ll, p, p, p, p, p]
     lib.crush_ln_stream_launch.restype = i
@@ -221,7 +219,7 @@ def straw2_choose(items_tbl: torch.Tensor, weights_tbl: torch.Tensor,
     rh_lh, ll, full = ln_tables(dev)
     with torch.cuda.device(dev):
         _launch("crush_straw2_k3", library().crush_straw2_choose_launch,
-                LN_FORMS[K3_LN_FORM], items_tbl.data_ptr(), weights_tbl.data_ptr(),
+                items_tbl.data_ptr(), weights_tbl.data_ptr(),
                 sizes.data_ptr(), n_idx, S, weights_tbl.shape[0] // n_idx,
                 bucket_idx.data_ptr(), x.data_ptr(), r.data_ptr(), position.data_ptr(),
                 B, rh_lh.data_ptr(), ll.data_ptr(), full.data_ptr(), out.data_ptr())
@@ -233,7 +231,7 @@ def ln_scores(x: torch.Tensor, items: torch.Tensor, r: torch.Tensor) -> torch.Te
     TPU kernel's function (its hi and lo planes joined).  x and r [B]
     int32, items [B, S] int32.
 
-    CUDA tensors: one launch of K3's ln_scores form.  CPU tensors:
+    CUDA tensors: one launch of K3's ln_scores kernel.  CPU tensors:
     ``ln_scores_plain``."""
     dev = items.device
     _check("items", items, torch.int32, 2, dev)
@@ -252,7 +250,7 @@ def ln_scores(x: torch.Tensor, items: torch.Tensor, r: torch.Tensor) -> torch.Te
     rh_lh, ll, full = ln_tables(dev)
     with torch.cuda.device(dev):
         _launch("crush_ln_scores_k3", library().crush_ln_scores_launch,
-                LN_FORMS[K3_LN_FORM], x.data_ptr(), items.data_ptr(), r.data_ptr(), B, S,
+                x.data_ptr(), items.data_ptr(), r.data_ptr(), B, S,
                 rh_lh.data_ptr(), ll.data_ptr(), full.data_ptr(), out.data_ptr())
     return out
 

@@ -25,7 +25,10 @@ multi-choose rule, and crushtool --test on the card against the CPU.
 Every placement is checked against the CPU mapper and the scalar mapper.
 
 For each path the launch counters are set to 0 just before it and read
-just after, and every kernel of the path must have launched.  The last
+just after, and every kernel of the path must have launched.  K3 is
+timed over the xs one pass of the mapper takes, and its bound counts the
+INT32-pipe instructions of its slot loop in the SASS of the library the
+run built (cuobjdump, beside nvcc).  The last
 lines are the card, one ``kernels`` JSON object (each kernel's time
 beside its bound and its plain version's time), and ``{"ok": true,
 "device": {...}}``.  Any failure raises and the exit code is not 0;
@@ -37,9 +40,11 @@ ceph_tpu_torch only.
 """
 from __future__ import annotations
 
+import collections
 import copy
 import io
 import json
+import re
 import subprocess
 import sys
 import threading
@@ -57,13 +62,8 @@ STRIPE_UNIT = 4096
 #: H100 SXM INT32 operations/s: 132 SMs x 64 INT32 lanes (Hopper white
 #: paper) at the card's 1980 MHz boost clock
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
-#: INT32-pipe instructions (IADD3, LOP3, SHF, ISETP, SEL, VIADD, FLO, LEA)
-#: K3 executes per slot it walks, and ln_scores per element, in each
-#: crush_ln form: counted in the SASS of the sm_90a build (cuobjdump -sass,
-#: the executed path of the slot loop with the 64-bit divide subroutine).
-#: The IMADs of the same path issue to the FMA pipe and are not counted.
-K3_INT32_PER_SLOT = {"compute": 191, "table": 179}
-LN_SCORES_INT32_PER_ELEMENT = {"compute": 152, "table": 136}
+#: opcodes that issue to the INT32 pipe; IMAD issues to the FMA pipe
+INT32_PIPE = {"IADD3", "LOP3", "SHF", "ISETP", "SEL", "VIADD", "FLO", "LEA", "IABS", "PRMT"}
 #: BASELINE config 5: the remap of 10M objects over a 1024-OSD map
 REMAP_OBJECTS = 10_000_000
 HOSTS, OSDS_PER_HOST, OUT_HOST = 128, 8, 17
@@ -136,16 +136,94 @@ def padded(row: list[int], n: int, none: int) -> list[int]:
     return (row + [none] * n)[:n]
 
 
+# ---- K3's operation count, from the SASS of the library just built ----
+
+
+def sass_functions(sass: str) -> dict[str, list[tuple[int, str]]]:
+    """Function name -> [(address, instruction)] of a cuobjdump -sass dump."""
+    out: dict[str, list[tuple[int, str]]] = {}
+    name = None
+    for line in sass.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            out[name] = []
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if m and name:
+            out[name].append((int(m.group(1), 16), m.group(2)))
+    return out
+
+
+def opcode(ins: str) -> str:
+    return re.sub(r"^@!?U?P\w+\s+", "", ins).split()[0].split(".")[0]
+
+
+def branch_target(ins: str) -> int:
+    return int(ins.split("0x")[-1].split()[0], 16)
+
+
+def between(code, lo: int, hi: int) -> list[str]:
+    return [ins for addr, ins in code if lo <= addr <= hi]
+
+
+def k3_slot_path(code) -> list[str]:
+    """One slot of straw2_choose_kernel's loop as executed: the loop head
+    to the call of the 64-bit divide subroutine, the subroutine to its
+    RET, and the loop tail.  The divide's 32-bit fast path never runs (the
+    dividend crush_ln(u) - 2^48 is negative), so it is skipped."""
+    call = next(a for a, i in code if "CALL" in i)
+    sub = branch_target(next(i for a, i in code if a == call))
+    ret = next(a for a, i in code if a > sub and opcode(i) == "RET")
+    head, back = min(((branch_target(i), a) for a, i in code  # the innermost loop
+                      if opcode(i) == "BRA" and branch_target(i) < call < a),
+                     key=lambda t: t[1] - t[0])
+    after = next(a for a, i in code if a > call and opcode(i) == "BRA")
+    tail = branch_target(next(i for a, i in code if a == after))
+    return (between(code, head, call) + between(code, sub, ret)
+            + between(code, call + 1, after) + between(code, tail, back))
+
+
+def loop_path(code) -> list[str]:
+    """One trip of the function's longest loop."""
+    head, back = max(((branch_target(i), a) for a, i in code
+                      if opcode(i) == "BRA" and branch_target(i) < a),
+                     key=lambda t: t[1] - t[0])
+    return between(code, head, back)
+
+
+def int32_counts(library: Path) -> dict[str, int]:
+    """INT32-pipe instructions per slot K3 walks and per element of
+    ln_scores, counted in the SASS of `library` (cuobjdump, beside nvcc)."""
+    from ceph_tpu_torch.ops.nvcc import nvcc
+
+    sass = subprocess.run([str(Path(nvcc()).parent / "cuobjdump"), "-sass", str(library)],
+                          capture_output=True, text=True, check=True).stdout
+    counts = {}
+    for name, code in sass_functions(sass).items():
+        for kernel, path_of in (("straw2_choose_kernel", k3_slot_path),
+                                ("ln_scores_kernel", loop_path)):
+            if kernel in name:
+                ops = collections.Counter(opcode(i) for i in path_of(code))
+                counts[kernel] = sum(n for op, n in ops.items() if op in INT32_PIPE)
+                log(f"    sass {kernel}: {sum(ops.values())} instructions per trip, "
+                    f"{counts[kernel]} on the INT32 pipe; {dict(ops.most_common())}")
+    check(set(counts) == {"straw2_choose_kernel", "ln_scores_kernel"},
+          f"K3's kernels not found in the SASS of {library.name}: {sorted(counts)}")
+    return counts
+
+
 def crush_slice(torch, dev, card: str, smi: str) -> list[dict]:
     """Phases 10-17: the placement path on the card (see the docstring)."""
     from ceph_tpu_torch.crush import (
         ITEM_NONE, CrushWrapper, build_hierarchical_map, make_straw2_bucket)
+    from ceph_tpu_torch.crush.mapper import batch_chunk
     from ceph_tpu_torch.crush.types import Rule, RuleOp, RuleStep
     from ceph_tpu_torch.ops import crush_kernels as ck
     from ceph_tpu_torch.tools import crushtool
 
     entries = []
-    form = ck.K3_LN_FORM
+    int32 = int32_counts(ck.LIBRARY.path())
     g = torch.Generator(device=dev)
 
     def rand(lo: int, hi: int, n: int, seed: int):
@@ -175,7 +253,8 @@ def crush_slice(torch, dev, card: str, smi: str) -> list[dict]:
         log(f"[10 probe] crush_ln {f}: bytes equal over {PROBE_ELEMENTS} u, {probe_ms[f]:.4f} ms, "
             f"bound {bytes_ms:.4f} ms by bytes, plain {plain_ms:.3f} ms, "
             f"index_select {library_ms:.4f} ms")
-    log(f"[10 probe] faster form: {min(probe_ms, key=probe_ms.get)}; K3 runs {form}")
+    log(f"[10 probe] faster form: {min(probe_ms, key=probe_ms.get)}; K3 is built with the "
+        f"table form")
     del u, plain, library
 
     # 11. K3 and ln_scores against their plain versions, 2^18 lanes
@@ -193,7 +272,7 @@ def crush_slice(torch, dev, card: str, smi: str) -> list[dict]:
     entries.append(kernel_entry(
         "crush_ln_scores_k3", "ceph_tpu/ops/pallas_crush.py:176",
         f"x, r [{CRUSH_LANES}], items [{CRUSH_LANES}, 128] (the root row)", err, ms,
-        ls_plain_ms, n * LN_SCORES_INT32_PER_ELEMENT[form] / INT32_OPS_PER_S * 1e3,
+        ls_plain_ms, n * int32["ln_scores_kernel"] / INT32_OPS_PER_S * 1e3,
         (12 * n + 8 * CRUSH_LANES) / HBM_BYTES_PER_S * 1e3, None, card, smi))
     log(f"[11 K3] ln_scores [{CRUSH_LANES}, 128]: equal to the plain version, {ms:.4f} ms")
     mixed = build_hierarchical_map(HOSTS, OSDS_PER_HOST)
@@ -342,7 +421,10 @@ def crush_slice(torch, dev, card: str, smi: str) -> list[dict]:
     for phase, count in per_phase.items():
         check(count > 0, f"phase {phase} placed without K3")
 
-    # 17. K3 at phase 12's shapes: its first root draw and first host draw
+    # 17. K3 at phase 12's launch shapes: the first root draw and the first
+    # host draw of one pass of the interpreter, over the xs it takes
+    lanes = min(REMAP_OBJECTS, batch_chunk(cm, 0, 3))
+    xs = xs[:lanes]
     zeros = torch.zeros_like(xs)
     root_args = (cm.items, cm.weights, cm.sizes, zeros, xs, zeros, zeros)
     hosts = (-1 - ck.straw2_choose(*root_args)).contiguous()
@@ -353,21 +435,16 @@ def crush_slice(torch, dev, card: str, smi: str) -> list[dict]:
         err = max_err(torch, got, ck.straw2_choose_plain(*args))
         check(err == 0, f"straw2_choose at the {level} differs from its plain version")
         slots = int(cm.sizes[args[3].long()].sum())
-        by_form = {}
-        for f in ck.LN_FORMS:  # both forms, for the record; the path runs `form`
-            ck.K3_LN_FORM = f
-            by_form[f] = time_ms(torch, lambda: ck.straw2_choose(*args), iters=10)
-        ck.K3_LN_FORM = form
+        ms = time_ms(torch, lambda: ck.straw2_choose(*args), iters=10)
         k3_plain_ms = time_ms(torch, lambda: ck.straw2_choose_plain(*args), iters=2, warmup=1)
-        ops_ms = slots * K3_INT32_PER_SLOT[form] / INT32_OPS_PER_S * 1e3
-        bytes_ms = (16 * REMAP_OBJECTS + map_bytes) / HBM_BYTES_PER_S * 1e3
+        ops_ms = slots * int32["straw2_choose_kernel"] / INT32_OPS_PER_S * 1e3
+        bytes_ms = (16 * lanes + map_bytes) / HBM_BYTES_PER_S * 1e3
         entries.append(kernel_entry(
             "crush_straw2_k3", "ceph_tpu/ops/pallas_crush.py:176",
-            f"{REMAP_OBJECTS} lanes at the {level} ({slots} slots walked)", err,
-            by_form[form], k3_plain_ms, ops_ms, bytes_ms, None, card, smi,
-            ln_form=form, ms_by_form=by_form))
-        log(f"[17 K3] {level}: {by_form[form]:.4f} ms ({form}; {by_form} by form), "
-            f"bound {max(ops_ms, bytes_ms):.4f} ms by operations, plain {k3_plain_ms:.1f} ms")
+            f"{lanes} lanes at the {level} ({slots} slots walked)", err,
+            ms, k3_plain_ms, ops_ms, bytes_ms, None, card, smi))
+        log(f"[17 K3] {level}, {lanes} lanes: {ms:.4f} ms, bound "
+            f"{max(ops_ms, bytes_ms):.4f} ms by operations, plain {k3_plain_ms:.1f} ms")
     for e in entries:
         e["launches"] = launches[e["name"]]
     return entries

@@ -4,7 +4,9 @@ JAX package's batch mapper and both packages' scalar mappers, on every
 rule shape the batch path serves.  Each map is built twice from the same
 steps, once by each package's builder; placements must be identical.
 Maps stay small (16 hosts x 4 OSDs at most) and x runs to a few hundred,
-because the reference compiles each rule shape.
+because the reference compiles each rule shape (a few seconds each): the
+cases that share a map and a rule share one reference CompiledCrushMap,
+whose compiled rule is cached, and differ only in the reweight vector.
 """
 import numpy as np
 import pytest
@@ -30,7 +32,7 @@ def _firstn(b, t):
 
 
 def _indep(b, t):
-    return b.build_hierarchical_map(16, 4), 1, 6
+    return b.build_hierarchical_map(16, 4), 1, 4
 
 
 def _racks(b, t):
@@ -95,18 +97,30 @@ CASES = {
 }
 
 
+_MAPS: dict = {}
+
+
+def _maps(make):
+    """(reference map, its CompiledCrushMap, port map, rule, numrep), made
+    once per map builder."""
+    if make not in _MAPS:
+        jmap, rule, nrep = make(jax_builder, jax_types)
+        tmap, _, _ = make(builder, types)
+        _MAPS[make] = (jmap, JaxCompiled(jmap), tmap, rule, nrep)
+    return _MAPS[make]
+
+
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_batch_matches_reference(case):
     make, choose_args, reweight = CASES[case]
-    jmap, rule, nrep = make(jax_builder, jax_types)
-    tmap, _, _ = make(builder, types)
+    jmap, jcm, tmap, rule, nrep = _maps(make)
     weights = np.full(tmap.max_devices, W, dtype=np.int64)
     for osd, w in reweight.items():
         weights[osd] = w
     xs = np.arange(256)
     got = crush_do_rule_batch(CompiledCrushMap(tmap, "cpu"), rule, xs, nrep, weights,
                               choose_args=choose_args).numpy()
-    want = np.asarray(jax_batch(JaxCompiled(jmap), rule, xs, nrep,
+    want = np.asarray(jax_batch(jcm, rule, xs, nrep,
                                 weights.astype(np.uint32), choose_args=choose_args))
     np.testing.assert_array_equal(got, want)
     t_ca = tmap.choose_args.get(choose_args) if choose_args else None

@@ -182,18 +182,6 @@ def test_ln_stream_every_u(cuda, form):
     np.testing.assert_array_equal(got.cpu().numpy(), CRUSH_LN_TABLE[::-1])
 
 
-@pytest.mark.parametrize("form", ["compute", "table"])
-def test_k3_both_forms_match(cuda, form, monkeypatch):
-    """Either crush_ln form gives K3 the same draws (the probe picks the
-    faster one)."""
-    from ceph_tpu_torch.ops import crush_kernels
-
-    monkeypatch.setattr(crush_kernels, "K3_LN_FORM", form)
-    args = [torch.from_numpy(a).to(cuda) for a in _straw2_case(128, 129, 2, 20000, 7)]
-    assert torch.equal(crush_kernels.straw2_choose(*args),
-                       crush_kernels.straw2_choose_plain(*args))
-
-
 def test_batch_mapper_on_the_card(cuda):
     """The port's batch mapper on the card (every draw a K3 launch) equals
     the same mapper on the CPU and the scalar mapper."""
