@@ -4,54 +4,72 @@
 //   gf_apply_k1  <- _apply_kernel          (pallas_gf.py:184, rb == 1)
 //   gf_apply_k2  <- _apply_kernel_blocked  (pallas_gf.py:202, rb > 1)
 //
-// What bounds it.  The apply reads n*L bytes and writes rows*L bytes; for
-// the RS encode and decode shapes that is the whole cost on this card
-// (3.35 TB/s), so both kernels read each input byte from device memory
-// once and write each output byte once.  The TPU kernel's G row grouping,
-// VMEM model and bf16 pack-by-matmul are TPU layout and are not carried
-// over.
+// Both read n*L bytes and write rows*L bytes, and read each input byte
+// from device memory once.  The TPU kernel's G row grouping, VMEM model
+// and bf16 pack-by-matmul are TPU layout and are not carried over.
 //
-// Design: split-nibble multiply tables (ISA-L's form).  For a matrix entry
-// c the 32-byte table holds lo[x] = c*x and hi[x] = c*(x << 4) for the 16
-// nibble values x, so c*b = lo[b & 15] ^ hi[b >> 4].  A thread owns one
-// 32-bit word (4 byte columns) of every input row; one nibble lookup for
-// all 4 bytes is two __byte_perm over the table's two 8-byte halves and a
-// byte select on the nibble's top bit.  The tables sit in shared memory and
-// every thread of a warp reads the same entry (a broadcast), so the
-// lookups cost no bank conflicts.
+// K1, for thin matrices (RS encode and decode): split-nibble multiply
+// tables (ISA-L's form).  For a matrix entry c the 32-byte table holds
+// lo[x] = c*x and hi[x] = c*(x << 4) for the 16 nibble values x, so
+// c*b = lo[b & 15] ^ hi[b >> 4].  A nibble lookup for 4 bytes is two
+// __byte_perm over the table's two 8-byte halves and a byte select on the
+// nibble's top bit.  The tables of the whole matrix sit in one block's
+// shared memory (the host sends a matrix here when rows <= MAX_ROWS and
+// the tables fit K1_MAX_TABLE_BYTES, see ops/gf_kernels.py) and every
+// thread of a warp reads the same entry (a broadcast).  Each block walks
+// a column tile of all n input rows; a thread owns 16 byte columns and
+// issues the next row's load before the current row's lookups.  Bound by
+// bytes: the RS shapes do ~n*rows lookups per byte moved.
 //
-//   K1 holds the tables of the whole matrix in one block's shared memory
-//   (the host sends a matrix here when rows <= MAX_ROWS and the tables fit
-//   K1_MAX_TABLE_BYTES, see ops/gf_kernels.py).  Each block walks a column
-//   tile of all n input rows and writes all rows output rows.  A thread
-//   owns 16 byte columns (four words, one 16-byte load per row) and
-//   issues the next row's load before the current row's lookups, so that
-//   enough bytes are in flight to cover the memory latency.
+// K2, for fat matrices (CLAY repair [64, 176] and [256, 960]): a bitplane
+// product on the tensor cores, the TPU kernel's own formulation.  A GF(2^8)
+// product by a constant is linear over GF(2), so the [rows, n] matrix is a
+// 0/1 matrix of [8*rows, 8*n] (gf/matrix.py::matrix_to_bitmatrix) and the
+// apply is its integer product with the input's bits, taken mod 2.  What
+// bounds it: the bytes on HBM ((n + rows) * L) and the int8 tensor-core
+// rate for 2 * 64 * rows * n * L operations; at the CLAY shapes the
+// second is ~10x the first (0.048 against 0.0047 ms for the repair), so
+// the design is about feeding mma.sync.m16n8k32.s8 from packed operands:
 //
-//   K2 is the banded form for fat matrices (CLAY repair [64, 176] needs
-//   ~360 KB of tables).  A block stages its column tile of the n inputs in
-//   shared memory once, then loops over row bands: it loads one band's
-//   tables, and writes that band's output rows.  The last band may be
-//   short; its missing rows are never computed or stored.  When the tile
-//   of all n inputs does not fit beside a band's tables (n above
-//   ~227, e.g. CLAY(12,4,d=15) repair [256, 960]), the inputs go through
-//   in chunks of chunk_rows: for each band, each chunk's inputs and that
-//   chunk's slice of the band's tables are staged in turn, and the band's
-//   sums stay in registers across the chunks.  The inputs are then read
-//   once per band (through L2) instead of once.
+//   * The operand (ops/gf_kernels.py::k2_operand, built once per matrix
+//     on the host) is the bitmatrix packed 8 bits to a byte like the
+//     input (byte j of a row holds k = 8*j + bit), rows padded to a
+//     multiple of 8 and n to a multiple of K2_STAGE_ROWS with zeros.  In
+//     each 64-row tile, row 8*b + i holds bit b of output row i.
+//   * Both operands stay packed in shared memory (1/8 of an s8 copy).  A
+//     k-step of the mma takes 4 input rows x 8 bits; the 4 k of one
+//     register are bit t of those 4 rows (t = lane % 4, and t + 4 for the
+//     second register), so a fragment register is (word >> t) & 0x01010101
+//     of a word that holds the 4 rows' bytes.  The A word is 4 bytes of an
+//     operand row; the B words come from a 4x4 byte transpose (__byte_perm)
+//     of 4 input rows at the lane's 4 columns.
+//   * A warp owns the block's 64 bitmatrix rows (8 output rows) x 32 byte
+//     columns, in 4 m16 x 4 n8 fragments.  Its n8 fragment f takes column
+//     4*g + f for lane group g, so that a lane's accumulators (rows g and
+//     g + 8 of each m16 fragment, columns 2t and 2t + 1) are bits 0..7 of
+//     output row g over 8 consecutive columns: each lane packs its own
+//     8 output bytes and stores them, with no shuffle.  Sums are exact
+//     mod 2^32, so the parity is right for any n.
+//   * Blocks of 4 warps over (8-output-row tiles) x (128-column tiles) x
+//     (segments, on grid.y): 4096 blocks at the CLAY(8,4,d=11) repair.
+//     A block loops over K in stages of K2_STAGE_ROWS input rows, staged
+//     with cp.async into a double buffer (16-byte copies when the segment
+//     is 16-byte aligned, 4-byte copies when it is word aligned, byte
+//     loads otherwise; bytes past the segment's end and rows past n read
+//     0).  26 KiB of shared memory and at most 128 registers a thread let
+//     4 blocks (16 warps) share an SM.
 //
 // Several input segments (the stripes of a fused flush) go through one
-// launch: segment s is [n, len_s] at its own pointer and row stride and
-// lands at output columns [out_col_s, out_col_s + len_s).  Ragged lengths
-// and unaligned rows are masked in the kernel; the host pads nothing.
+// launch of either kernel: segment s is [n, len_s] at its own pointer and
+// row stride and lands at output columns [out_col_s, out_col_s + len_s).
+// Ragged lengths and unaligned rows are masked in the kernel; the host
+// pads nothing.
 #include <cstdint>
 #include <cuda_runtime.h>
-
 namespace {
 
 constexpr int K1_THREADS = 256;
 constexpr int K1_VECS_PER_THREAD = 2;  // 16-byte vectors: 8192 byte columns per block
-constexpr int K2_THREADS = 128;         // 512 byte columns per block
 
 // One segment descriptor is four int64: input pointer, input row stride
 // (bytes), length (bytes), first output column.
@@ -161,25 +179,8 @@ __device__ __forceinline__ uint32_t lookup(const uint4& t, uint32_t sel, uint32_
   return (a & ~top) | (b & top);
 }
 
-// acc[i] ^= mat[r0 + i, j] * x for the band's rows; tab points at the
-// band's first row, entry (i, j) at tab[2 * (i * n + j)].
-template <int MAXR>
-__device__ __forceinline__ void mul_add_rows(uint32_t (&acc)[MAXR], const uint4* tab,
-                                             int n, int j, int nrows, uint32_t x) {
-  const Nibbles nb = split_word(x);
-  const uint4* tj = tab + 2 * j;
-#pragma unroll
-  for (int i = 0; i < MAXR; ++i) {
-    if (i < nrows) {
-      const uint4 lo = tj[2 * n * i];
-      const uint4 hi = tj[2 * n * i + 1];
-      acc[i] ^= lookup(lo, nb.sel_lo, nb.top_lo) ^ lookup(hi, nb.sel_hi, nb.top_hi);
-    }
-  }
-}
-
-// The same for four words at once: each table entry is read once for all
-// four.
+// acc[i] ^= mat[i, j] * x for four words x at once: each table entry is
+// read once for all four; entry (i, j) at tab[2 * (i * n + j)].
 template <int MAXR>
 __device__ __forceinline__ void mul_add_rows4(uint32_t (&acc)[MAXR][4], const uint4* tab,
                                               int n, int j, int nrows, const Vec& x) {
@@ -236,59 +237,230 @@ gf_apply_k1(const uint4* __restrict__ tables, int rows, int n,
   }
 }
 
-// Rows [j0, j0 + nj) of the column tile into xs[jj * K2_THREADS + lane];
-// bytes past the segment's end read 0.
-__device__ __forceinline__ void stage_inputs(uint32_t* xs, const Segment& g, int j0, int nj,
-                                             long long c, bool live, bool aligned) {
-  for (int jj = 0; jj < nj; ++jj)
-    xs[jj * K2_THREADS + threadIdx.x] =
-        live ? load_word(g.in + (j0 + jj) * g.stride, c, g.len, aligned) : 0u;
+// ---- K2: the bitplane product on the tensor cores ----
+
+constexpr int K2_WARPS = 4;
+constexpr int K2_THREADS = 32 * K2_WARPS;
+constexpr int K2_NFRAG = 4;                             // n8 fragments per warp
+constexpr int K2_WARP_COLS = 8 * K2_NFRAG;              // 32 byte columns
+constexpr int K2_TILE_COLS = K2_WARPS * K2_WARP_COLS;   // 128 byte columns per block
+constexpr int K2_TILE_ROWS = 8;                         // output rows per block
+constexpr int K2_TILE_BITROWS = 8 * K2_TILE_ROWS;       // operand rows per block
+constexpr int K2_STAGE_ROWS = 64;                       // input rows per stage
+// operand rows in shared memory: 16 bytes of padding put the 8 rows a
+// warp reads at once (one per lane group) in 8 different banks
+constexpr int K2_OP_PITCH = K2_STAGE_ROWS + 16;
+constexpr int K2_OP_STAGE_BYTES = K2_TILE_BITROWS * K2_OP_PITCH;
+constexpr int K2_STAGE_BYTES = K2_OP_STAGE_BYTES + K2_STAGE_ROWS * K2_TILE_COLS;
+constexpr int K2_SMEM_BYTES = 2 * K2_STAGE_BYTES;       // double buffer (ops/gf_kernels.k2_layout)
+constexpr uint32_t LOW_BITS = 0x01010101u;
+
+__device__ __forceinline__ void cp_async16(uint8_t* dst, const uint8_t* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
 }
 
-template <int MAXR>
-__global__ void __launch_bounds__(K2_THREADS)
-gf_apply_k2(const uint4* __restrict__ tables, int rows, int n, int band_rows,
-            int chunk_rows, const long long* __restrict__ segs, uint8_t* __restrict__ out,
-            long long out_stride) {
-  extern __shared__ uint4 smem[];
-  uint4* tab = smem;                                         // band_rows*chunk_rows*2
-  uint32_t* xs =
-      reinterpret_cast<uint32_t*>(smem + band_rows * chunk_rows * 2);  // chunk_rows*K2_THREADS
-  const Segment g = load_segment(segs, blockIdx.y);
-  const long long tile0 = static_cast<long long>(blockIdx.x) * (K2_THREADS * 4);
-  if (tile0 >= g.len) return;
-  const bool aligned = words_aligned(g, out, out_stride);
-  const long long c = tile0 + 4LL * threadIdx.x;
-  const bool live = c < g.len;
-  // one chunk: the column tile of all n inputs, read from device memory once
-  const bool one_chunk = chunk_rows >= n;
-  if (one_chunk) stage_inputs(xs, g, 0, n, c, live, aligned);
-  uint8_t* out_seg = out + g.out_col;
-  for (int r0 = 0; r0 < rows; r0 += band_rows) {
-    const int nrows = min(band_rows, rows - r0);
-    uint32_t acc[MAXR];
-#pragma unroll
-    for (int i = 0; i < MAXR; ++i) acc[i] = 0;
-    for (int j0 = 0; j0 < n; j0 += chunk_rows) {
-      const int nj = min(chunk_rows, n - j0);
-      __syncthreads();  // the previous chunk's tables and inputs are no longer read
-      if (!one_chunk) stage_inputs(xs, g, j0, nj, c, live, aligned);
-      // entry (i, jj) of the chunk's tables at tab[2 * (i * nj + jj)]
-      for (int t = threadIdx.x; t < nrows * nj * 2; t += K2_THREADS) {
-        const int i = t / (2 * nj);
-        tab[t] = tables[2LL * ((r0 + i) * static_cast<long long>(n) + j0) + (t - i * 2 * nj)];
-      }
-      __syncthreads();
-      if (live)
-        for (int jj = 0; jj < nj; ++jj)
-          mul_add_rows<MAXR>(acc, tab, nj, jj, nrows, xs[jj * K2_THREADS + threadIdx.x]);
-    }
-    if (!live) continue;
-#pragma unroll
-    for (int i = 0; i < MAXR; ++i)
-      if (i < nrows)
-        store_word(out_seg + (r0 + i) * out_stride, c, g.len, aligned, acc[i]);
+__device__ __forceinline__ void cp_async4(uint8_t* dst, const uint8_t* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::);
+}
+
+// How a segment's rows can be copied: 16 (16-byte aligned), 4 (word
+// aligned) or 1 (bytes).
+__device__ __forceinline__ int copy_width(const Segment& g) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(g.in) | static_cast<uintptr_t>(g.stride);
+  return (a & 15) == 0 ? 16 : (a & 3) == 0 ? 4 : 1;
+}
+
+// One stage into buf: the block's operand rows at bytes [j0, j0 + STAGE)
+// (the operand is padded, every byte exists) and input rows
+// [j0, j0 + STAGE) at columns [c0, c0 + TILE_COLS), 0 past n and len.
+// Whole 16-byte pieces go by cp.async; the rest by plain loads and stores.
+__device__ __forceinline__ void k2_stage(uint8_t* buf, const uint8_t* op, int op_pitch,
+                                         const Segment& g, int n, int j0, long long c0,
+                                         int width) {
+  constexpr int OP_PIECES = K2_STAGE_ROWS / 16;
+  for (int i = threadIdx.x; i < K2_TILE_BITROWS * OP_PIECES; i += K2_THREADS) {
+    const int p = i / OP_PIECES, piece = i % OP_PIECES;
+    cp_async16(buf + p * K2_OP_PITCH + 16 * piece,
+               op + static_cast<long long>(p) * op_pitch + j0 + 16 * piece);
   }
+  uint8_t* xs = buf + K2_OP_STAGE_BYTES;
+  constexpr int X_PIECES = K2_TILE_COLS / 16;
+  for (int i = threadIdx.x; i < K2_STAGE_ROWS * X_PIECES; i += K2_THREADS) {
+    const int jj = i / X_PIECES, piece = i % X_PIECES;
+    uint8_t* dst = xs + jj * K2_TILE_COLS + 16 * piece;
+    const long long c = c0 + 16 * piece;
+    const long long valid = j0 + jj < n ? max(0LL, min(16LL, g.len - c)) : 0;
+    if (valid == 0) {
+      *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
+      continue;
+    }
+    const uint8_t* src = g.in + static_cast<long long>(j0 + jj) * g.stride + c;
+    if (valid == 16 && width == 16) {
+      cp_async16(dst, src);
+    } else if (valid == 16 && width == 4) {
+#pragma unroll
+      for (int w = 0; w < 4; ++w) cp_async4(dst + 4 * w, src + 4 * w);
+    } else {
+      for (int b = 0; b < 16; ++b) dst[b] = b < valid ? src[b] : 0;
+    }
+  }
+}
+
+// 4x4 byte transpose: byte f of c[q] is byte q of r[f].
+__device__ __forceinline__ void transpose4(const uint32_t (&r)[4], uint32_t (&c)[4]) {
+  const uint32_t t0 = __byte_perm(r[0], r[1], 0x5140);  // r0.0 r1.0 r0.1 r1.1
+  const uint32_t t1 = __byte_perm(r[0], r[1], 0x7362);  // r0.2 r1.2 r0.3 r1.3
+  const uint32_t t2 = __byte_perm(r[2], r[3], 0x5140);
+  const uint32_t t3 = __byte_perm(r[2], r[3], 0x7362);
+  c[0] = __byte_perm(t0, t2, 0x5410);
+  c[1] = __byte_perm(t0, t2, 0x7632);
+  c[2] = __byte_perm(t1, t3, 0x5410);
+  c[3] = __byte_perm(t1, t3, 0x7632);
+}
+
+// B fragments of k-step s (input rows 4s..4s+3 of the stage) for the
+// lane's NFRAG columns xs[.., col + f]: register b0[f] holds bit t of the
+// 4 rows' bytes, b1[f] bit t + 4 (one 0/1 byte per k).
+__device__ __forceinline__ void k2_b_frags(const uint8_t* xs, int s, int col, int t,
+                                           uint32_t (&b0)[K2_NFRAG], uint32_t (&b1)[K2_NFRAG]) {
+#pragma unroll
+  for (int v = 0; v < K2_NFRAG / 4; ++v) {
+    uint32_t r[4], c[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      r[q] = *reinterpret_cast<const uint32_t*>(xs + (4 * s + q) * K2_TILE_COLS + col + 4 * v);
+    transpose4(r, c);
+#pragma unroll
+    for (int f = 0; f < 4; ++f) {
+      b0[4 * v + f] = (c[f] >> t) & LOW_BITS;
+      b1[4 * v + f] = (c[f] >> (t + 4)) & LOW_BITS;
+    }
+  }
+}
+
+// A fragment of m16 fragment m at k-step s: operand rows 16m + g (a0, a2)
+// and 16m + 8 + g (a1, a3), bit t (a0, a1) and t + 4 (a2, a3) of the
+// bytes of input rows 4s..4s+3.
+__device__ __forceinline__ void k2_a_frag(const uint8_t* as, int s, int m, int g, int t,
+                                          uint32_t (&a)[4]) {
+  const uint32_t w0 = *reinterpret_cast<const uint32_t*>(as + (16 * m + g) * K2_OP_PITCH + 4 * s);
+  const uint32_t w1 =
+      *reinterpret_cast<const uint32_t*>(as + (16 * m + 8 + g) * K2_OP_PITCH + 4 * s);
+  a[0] = (w0 >> t) & LOW_BITS;
+  a[1] = (w1 >> t) & LOW_BITS;
+  a[2] = (w0 >> (t + 4)) & LOW_BITS;
+  a[3] = (w1 >> (t + 4)) & LOW_BITS;
+}
+
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The lane's output bytes from its accumulators: byte NFRAG*h + f is
+// column 2*NFRAG*t + NFRAG*h + f of the warp's tile, bit 2m of it in
+// acc[m][f][h] and bit 2m + 1 in acc[m][f][2 + h].
+__device__ __forceinline__ void k2_pack(const int (&acc)[4][K2_NFRAG][4],
+                                        uint32_t (&words)[K2_NFRAG / 2]) {
+#pragma unroll
+  for (int u = 0; u < K2_NFRAG / 2; ++u) words[u] = 0;
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int f = 0; f < K2_NFRAG; ++f) {
+      uint32_t byte = 0;
+#pragma unroll
+      for (int m = 0; m < 4; ++m)
+        byte |= (static_cast<uint32_t>(acc[m][f][h]) & 1u) << (2 * m) |
+                (static_cast<uint32_t>(acc[m][f][2 + h]) & 1u) << (2 * m + 1);
+      const int e = K2_NFRAG * h + f;
+      words[e / 4] |= byte << (8 * (e % 4));
+    }
+}
+
+__global__ void __launch_bounds__(K2_THREADS, 4)
+gf_apply_k2(const uint8_t* __restrict__ op, int rows, int n, int op_pitch,
+            const long long* __restrict__ segs, uint8_t* __restrict__ out,
+            long long out_stride) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int row_tiles = (rows + K2_TILE_ROWS - 1) / K2_TILE_ROWS;
+  const int tile = blockIdx.x % row_tiles;
+  const long long c0 = static_cast<long long>(blockIdx.x / row_tiles) * K2_TILE_COLS;
+  const Segment g = load_segment(segs, blockIdx.y);
+  if (c0 >= g.len) return;  // whole block: this segment is shorter
+  const int width = copy_width(g);
+  const uint8_t* op_tile = op + static_cast<long long>(tile) * K2_TILE_BITROWS * op_pitch;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int grp = lane / 4, t = lane % 4;
+  const int col = warp * K2_WARP_COLS + K2_NFRAG * grp;  // the lane's B columns
+
+  int acc[4][K2_NFRAG][4];
+#pragma unroll
+  for (int m = 0; m < 4; ++m)
+#pragma unroll
+    for (int f = 0; f < K2_NFRAG; ++f)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[m][f][i] = 0;
+
+  const int stages = (n + K2_STAGE_ROWS - 1) / K2_STAGE_ROWS;
+  k2_stage(smem, op_tile, op_pitch, g, n, 0, c0, width);
+  cp_async_commit();
+  for (int st = 0; st < stages; ++st) {
+    if (st + 1 < stages)
+      k2_stage(smem + ((st + 1) & 1) * K2_STAGE_BYTES, op_tile, op_pitch, g, n,
+               (st + 1) * K2_STAGE_ROWS, c0, width);
+    cp_async_commit();
+    cp_async_wait_one();  // stage st has landed
+    __syncthreads();
+    const uint8_t* as = smem + (st & 1) * K2_STAGE_BYTES;
+    const uint8_t* xs = as + K2_OP_STAGE_BYTES;
+    const int steps = (min(K2_STAGE_ROWS, n - st * K2_STAGE_ROWS) + 3) / 4;
+#pragma unroll 2
+    for (int s = 0; s < steps; ++s) {
+      uint32_t b0[K2_NFRAG], b1[K2_NFRAG];
+      k2_b_frags(xs, s, col, t, b0, b1);
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        uint32_t a[4];
+        k2_a_frag(as, s, m, grp, t, a);
+#pragma unroll
+        for (int f = 0; f < K2_NFRAG; ++f) mma_s8(acc[m][f], a, b0[f], b1[f]);
+      }
+    }
+    __syncthreads();  // buffer st & 1 is free for stage st + 2
+  }
+
+  const int row = tile * K2_TILE_ROWS + grp;
+  const long long lc = c0 + warp * K2_WARP_COLS + 2 * K2_NFRAG * t;  // segment column
+  if (row >= rows || lc >= g.len) return;
+  uint32_t words[K2_NFRAG / 2];
+  k2_pack(acc, words);
+  uint8_t* dst = out + row * out_stride + g.out_col + lc;
+  const bool aligned8 = ((reinterpret_cast<uintptr_t>(out) | static_cast<uintptr_t>(out_stride) |
+                          static_cast<uintptr_t>(g.out_col)) & 7) == 0;
+  if (aligned8 && lc + 2 * K2_NFRAG <= g.len) {
+#pragma unroll
+    for (int u = 0; u < K2_NFRAG / 2; u += 2)
+      *reinterpret_cast<uint2*>(dst + 4 * u) = make_uint2(words[u], words[u + 1]);
+    return;
+  }
+#pragma unroll
+  for (int e = 0; e < 2 * K2_NFRAG; ++e)
+    if (lc + e < g.len) dst[e] = static_cast<uint8_t>(words[e / 4] >> (8 * (e % 4)));
 }
 
 template <int MAXR>
@@ -322,21 +494,19 @@ int gf_apply_k1_launch(const void* tables, int rows, int n, const void* segs, in
   return launch_k1<16>(tables, rows, n, segs, nseg, max_len, out, out_stride, stream);
 }
 
-int gf_apply_k2_launch(const void* tables, int rows, int n, int band_rows, int chunk_rows,
-                       const void* segs, int nseg, long long max_len, void* out,
-                       long long out_stride, void* stream) {
-  // one chunk of a band's tables + the chunk's input tile
-  // (ops/gf_kernels.k2_smem_bytes)
-  const size_t smem = 32ull * band_rows * chunk_rows + 4ull * K2_THREADS * chunk_rows;
-  const long long cols = K2_THREADS * 4;
-  dim3 grid(static_cast<unsigned>((max_len + cols - 1) / cols),
-            static_cast<unsigned>(nseg));
-  cudaError_t err = cudaFuncSetAttribute(
-      gf_apply_k2<16>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+// op: k2_operand(mat) on the device, [8 * ceil(rows / 8) * 8, op_pitch].
+int gf_apply_k2_launch(const void* op, int rows, int n, int op_pitch, const void* segs,
+                       int nseg, long long max_len, void* out, long long out_stride,
+                       void* stream) {
+  const long long row_tiles = (rows + K2_TILE_ROWS - 1) / K2_TILE_ROWS;
+  const long long col_tiles = (max_len + K2_TILE_COLS - 1) / K2_TILE_COLS;
+  const dim3 grid(static_cast<unsigned>(row_tiles * col_tiles), static_cast<unsigned>(nseg));
+  const cudaError_t err = cudaFuncSetAttribute(
+      gf_apply_k2, cudaFuncAttributeMaxDynamicSharedMemorySize, K2_SMEM_BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
-  gf_apply_k2<16><<<grid, K2_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint4*>(tables), rows, n, band_rows, chunk_rows,
-      static_cast<const long long*>(segs), static_cast<uint8_t*>(out), out_stride);
+  gf_apply_k2<<<grid, K2_THREADS, K2_SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(op), rows, n, op_pitch, static_cast<const long long*>(segs),
+      static_cast<uint8_t*>(out), out_stride);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -24,7 +24,7 @@ import torch
 
 from ..common.device import as_bytes_tensor, resolve_device
 from ..gf.matrix import decode_matrix_for, systematic_generator
-from .gf_kernels import gf_apply, nibble_tables
+from .gf_kernels import device_operand, gf_apply
 
 
 def matrix_digest(mat: np.ndarray) -> str:
@@ -37,7 +37,8 @@ def matrix_digest(mat: np.ndarray) -> str:
 
 
 class TableCache:
-    """Bounded LRU of the kernels' split-nibble tables on the device, keyed
+    """Bounded LRU of the kernels' matrix operands on the device (K1's
+    split-nibble tables, K2's packed bitmatrix: ``device_operand``), keyed
     by (matrix digest, device): a hot matrix is expanded and copied to the
     card once."""
 
@@ -54,7 +55,7 @@ class TableCache:
             if tab is not None:
                 self._tables.move_to_end(key)
                 return tab
-        tab = torch.from_numpy(nibble_tables(mat)).to(device)
+        tab = torch.from_numpy(device_operand(mat)).to(device)
         with self._lock:
             self._tables[key] = tab
             self._tables.move_to_end(key)
@@ -63,7 +64,8 @@ class TableCache:
         return tab
 
 
-#: the process's table cache (bounded; tables are a few KiB each)
+#: the process's operand cache (bounded; a few KiB each, CLAY(12,4,d=15)'s
+#: repair operand 480 KiB)
 TABLES = TableCache()
 
 

@@ -8,12 +8,13 @@ csrc/gf_apply.cu and replace the two Pallas kernels one for one:
 
 Both compute ``out[rows, L] = mat[rows, n] x in[n, L]`` over GF(2^8)
 (polynomial 0x11d), bit-exact against gf/reference_codec.apply_matrix.
-The apply is bound by memory: it reads n*L bytes and writes rows*L bytes.
-The kernels look the products up in split-nibble tables (32 bytes per
-matrix entry, built here by ``nibble_tables``) held in shared memory.
-``kernel_for`` is the rule that picks one: K1 holds the whole matrix's
-tables in one block; K2 stages the input tile and walks the rows in bands,
-taking the inputs in chunks when they do not all fit (``k2_layout``).
+``kernel_for`` is the rule that picks one.  K1 looks the products up in
+split-nibble tables (32 bytes per matrix entry, ``nibble_tables``) that
+hold the whole matrix in one block's shared memory.  K2 takes the fat
+matrices: it runs the bitplane product on the tensor cores, against
+``k2_operand`` (the GF(2) bitmatrix, packed and with its rows permuted
+for the kernel's epilogue); ``k2_layout`` gives its grid and shared
+memory.  ``device_operand`` is what either kernel reads for a matrix.
 
 The library is compiled by nvcc from the checkout's source at first use
 into build/ceph_tpu_torch/ and bound with ctypes (plain C interface).  The
@@ -28,6 +29,7 @@ from __future__ import annotations
 
 import ctypes
 from functools import lru_cache
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -36,18 +38,26 @@ from ..gf.matrix import matrix_to_bitmatrix
 from ..gf.tables import GF_MUL_TABLE
 from .nvcc import NvccLibrary
 
-#: accumulators a thread keeps: a K1 matrix or a K2 band has at most this
-#: many rows (csrc: the largest MAXR instantiation)
+#: accumulators a thread of K1 keeps: a K1 matrix has at most this many
+#: rows (csrc: the largest MAXR instantiation)
 MAX_ROWS = 16
 #: split-nibble table bytes per matrix entry: lo[16] then hi[16]
 TABLE_BYTES_PER_ENTRY = 32
 #: THE K1/K2 rule: a matrix goes to K1 when rows <= MAX_ROWS and its
 #: tables take at most this many bytes of the block's shared memory;
 #: every other matrix goes to K2.  RS(8,4) encode [4, 8] takes 1 KiB and
-#: its decode [8, 8] 2 KiB; CLAY(8,4,d=11) repair [64, 176] takes 352 KiB.
+#: its decode [8, 8] 2 KiB; CLAY(8,4,d=11) repair [64, 176] would take
+#: 352 KiB.
 K1_MAX_TABLE_BYTES = 16 * 1024
-#: K2 threads per block (csrc K2_THREADS): one 4-byte column word each
-K2_THREADS = 128
+#: K2's block tile (csrc K2_TILE_ROWS, K2_TILE_COLS): 8 output rows (64
+#: bitmatrix rows) x 128 byte columns, 4 warps of 32 columns each
+K2_TILE_ROWS = 8
+K2_TILE_COLS = 128
+#: input rows per shared-memory stage (csrc K2_STAGE_ROWS); the operand's
+#: rows are padded to a multiple of it
+K2_STAGE_ROWS = 64
+#: bytes of one operand row in shared memory (csrc K2_OP_PITCH)
+K2_OP_SMEM_PITCH = K2_STAGE_ROWS + 16
 #: dynamic shared memory one block may use on Hopper (227 KiB)
 SMEM_PER_BLOCK = 232448
 
@@ -71,24 +81,62 @@ def kernel_for(rows: int, n: int) -> str:
     return "gf_apply_k2"
 
 
-def k2_smem_bytes(chunk_rows: int, band_rows: int) -> int:
-    """K2's shared memory per block: a band's tables for one chunk of
-    input rows + that chunk's input tile."""
-    return (TABLE_BYTES_PER_ENTRY * band_rows + 4 * K2_THREADS) * chunk_rows
+class K2Layout(NamedTuple):
+    """One K2 launch's shape (csrc gf_apply_k2_launch computes the same)."""
+
+    row_tiles: int   # blocks along the rows: K2_TILE_ROWS output rows each
+    col_tiles: int   # blocks along the longest segment: K2_TILE_COLS each
+    op_pitch: int    # operand bytes per bitmatrix row: n padded to a stage
+    smem_bytes: int  # dynamic shared memory per block: two stages
 
 
-def k2_layout(rows: int, n: int) -> tuple[int, int]:
-    """(band_rows, chunk_rows) of a K2 launch for a [rows, n] matrix.
+def k2_layout(rows: int, n: int, max_len: int) -> K2Layout:
+    """The grid and shared memory of a K2 launch for a [rows, n] matrix
+    over segments at most ``max_len`` long.  A stage holds the block's
+    64 operand rows x K2_STAGE_ROWS bytes and K2_STAGE_ROWS input rows x
+    K2_TILE_COLS columns; the block loops over the stages, so any n fits
+    the same 26 KiB.  CLAY(8,4,d=11) repair [64, 176] x 65,536: 8 x 512
+    blocks."""
+    stage = 64 * K2_OP_SMEM_PITCH + K2_STAGE_ROWS * K2_TILE_COLS
+    return K2Layout(-(-rows // K2_TILE_ROWS), -(-max_len // K2_TILE_COLS),
+                    -(-n // K2_STAGE_ROWS) * K2_STAGE_ROWS, 2 * stage)
 
-    A band is up to MAX_ROWS output rows (their sums live in registers).
-    The inputs go through in as few equal chunks as fit in shared memory
-    beside a band's tables: one chunk (the tile staged once) for n up to
-    227, e.g. CLAY(8,4,d=11) repair [64, 176]; five of 192 for
-    CLAY(12,4,d=15) repair [256, 960]."""
-    band = min(rows, MAX_ROWS)
-    cap = SMEM_PER_BLOCK // k2_smem_bytes(1, band)
-    chunks = -(-n // cap)
-    return band, -(-n // chunks)
+
+def k2_operand(mat: np.ndarray) -> np.ndarray:
+    """K2's matrix operand, [64 * ceil(rows / 8), op_pitch] uint8.
+
+    The GF(2) bitmatrix of ``mat`` (``matrix_to_bitmatrix``: row 8*i + b
+    is bit b of output row i, column 8*j + x bit x of input row j), packed
+    8 columns to a byte like the input (bit x of byte j), rows padded to a
+    multiple of 8 output rows and n to a multiple of K2_STAGE_ROWS with
+    zeros.  Within each 64-row tile the rows are permuted: tile row
+    8*b + i holds bit b of output row i, so that a lane's mma accumulators
+    are the 8 bits of one output row (csrc/gf_apply.cu, K2)."""
+    mat = np.ascontiguousarray(mat, dtype=np.uint8)
+    rows, n = mat.shape
+    lay = k2_layout(rows, n, 0)
+    bits = np.zeros((lay.row_tiles * K2_TILE_ROWS, 8, lay.op_pitch, 8), np.uint8)
+    bits[:rows, :, :n] = matrix_to_bitmatrix(mat).reshape(rows, 8, n, 8)
+    tiles = bits.reshape(lay.row_tiles, K2_TILE_ROWS, 8, lay.op_pitch, 8)
+    tiles = tiles.transpose(0, 2, 1, 3, 4)  # [tile, bit b, row i, j, x]
+    packed = np.packbits(tiles, axis=-1, bitorder="little")
+    return np.ascontiguousarray(packed.reshape(lay.row_tiles * 64, lay.op_pitch))
+
+
+def operand_shape(rows: int, n: int) -> tuple[int, ...]:
+    """Shape of ``device_operand`` for a [rows, n] matrix."""
+    if kernel_for(rows, n) == "gf_apply_k1":
+        return (rows, n, TABLE_BYTES_PER_ENTRY)
+    lay = k2_layout(rows, n, 0)
+    return (lay.row_tiles * 64, lay.op_pitch)
+
+
+def device_operand(mat: np.ndarray) -> np.ndarray:
+    """What the kernel ``kernel_for`` picks reads for ``mat``: K1's
+    nibble tables or K2's packed bitmatrix."""
+    if kernel_for(*np.shape(mat)) == "gf_apply_k1":
+        return nibble_tables(mat)
+    return k2_operand(mat)
 
 
 def nibble_tables(mat: np.ndarray) -> np.ndarray:
@@ -109,7 +157,7 @@ def _bind(lib: ctypes.CDLL) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.gf_apply_k1_launch.argtypes = [p, i, i, p, i, ll, p, ll, p]
     lib.gf_apply_k1_launch.restype = i
-    lib.gf_apply_k2_launch.argtypes = [p, i, i, i, i, p, i, ll, p, ll, p]
+    lib.gf_apply_k2_launch.argtypes = [p, i, i, i, p, i, ll, p, ll, p]
     lib.gf_apply_k2_launch.restype = i
 
 
@@ -230,12 +278,14 @@ def _prepare(mat: np.ndarray, segs: list[torch.Tensor],
         raise ValueError(f"the GF kernels run on CUDA tensors, not {dev}")
     total = sum(s.shape[1] for s in segs)
     out = torch.empty((rows, total), dtype=torch.uint8, device=dev)
+    name = kernel_for(rows, n)
+    shape = operand_shape(rows, n)
     if tables is None:
-        tables = torch.from_numpy(nibble_tables(mat)).to(dev)
-    if (tables.dtype != torch.uint8 or tuple(tables.shape) != (rows, n, 32)
+        tables = torch.from_numpy(device_operand(mat)).to(dev)
+    if (tables.dtype != torch.uint8 or tuple(tables.shape) != shape
             or not tables.is_contiguous() or tables.device != dev):
-        raise ValueError(f"tables must be a contiguous [{rows}, {n}, 32] uint8 "
-                         f"tensor on {dev}")
+        raise ValueError(f"{name} wants its operand as a contiguous {list(shape)} "
+                         f"uint8 tensor on {dev} (device_operand)")
     desc, col = [], 0
     for s in segs:
         desc.append((s.data_ptr(), s.stride(0), s.shape[1], col))
@@ -243,9 +293,8 @@ def _prepare(mat: np.ndarray, segs: list[torch.Tensor],
     desc_dev = torch.tensor(desc, dtype=torch.int64).pin_memory().to(
         dev, non_blocking=True)
     max_len = max(s.shape[1] for s in segs)
-    name = kernel_for(rows, n)
-    layout = k2_layout(rows, n) if name == "gf_apply_k2" else ()
-    args = (tables.data_ptr(), rows, n, *layout, desc_dev.data_ptr(), len(segs),
+    pitch = (shape[1],) if name == "gf_apply_k2" else ()
+    args = (tables.data_ptr(), rows, n, *pitch, desc_dev.data_ptr(), len(segs),
             max_len, out.data_ptr(), total)
     return Launch(name, args, out, (tables, desc_dev, *segs))
 
@@ -258,8 +307,8 @@ def gf_apply(mat: np.ndarray, segments, tables: torch.Tensor | None = None
 
     CUDA tensors: ONE launch of K1 or K2 (``kernel_for``) over every
     segment, with no host-side concatenation or padding; ``tables`` is
-    the matrix's ``nibble_tables`` on the device, built here when not
-    given.  CPU tensors: ``apply_matrix_plain``."""
+    the matrix's ``device_operand`` on the device (bitplane.TABLES caches
+    it), built here when not given.  CPU tensors: ``apply_matrix_plain``."""
     mat = _checked_matrix(mat)
     rows, n = mat.shape
     segs = _checked_segments(n, segments)

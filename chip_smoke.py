@@ -7,8 +7,9 @@ erasure-code data plane and batched CRUSH placement.
 It builds the kernels of ceph_tpu_torch/csrc/ with nvcc (one nvcc per
 source, all at once) and holds each against its plain PyTorch version.
 
-The erasure-code path (phases 3-9): the GF(2^8) kernels K1 and K2, then
-through the entry points a user calls, the RS(8,4) cauchy_good write of
+The erasure-code path (phases 3-9): the GF(2^8) kernels K1 and K2 (K2's
+SASS must hold IMMA, the tensor-core instruction of its bitplane
+product), then through the entry points a user calls, the RS(8,4) cauchy_good write of
 256 objects of 1 MiB (256 MiB resident on the card) in one fused encode,
 their degraded read with shards {1, 4, 9, 11} lost, parity
 reconstruction, an RS(2,1) 128 MiB encode and decode, a SHEC(6,3,2)
@@ -30,7 +31,9 @@ timed over the xs one pass of the mapper takes, and its bound counts the
 INT32-pipe instructions of its slot loop in the SASS of the library the
 run built (cuobjdump, beside nvcc).  The last
 lines are the card, one ``kernels`` JSON object (each kernel's time
-beside its bound and its plain version's time), and ``{"ok": true,
+beside its bound and its plain version's time; K2's also beside its
+int8 tensor-core floor, at the CLAY(8,4,d=11) repair and at
+CLAY(12,4,d=15)'s wide one), and ``{"ok": true,
 "device": {...}}``.  Any failure raises and the exit code is not 0;
 without a card, or without the ceph_tpu_torch package beside this
 script, it exits 1 and prints no result.
@@ -59,6 +62,8 @@ HBM_BYTES_PER_S = 3.35e12
 OBJECTS = 256
 OBJECT_BYTES = 1 << 20
 STRIPE_UNIT = 4096
+#: H100 SXM dense int8 tensor-core operations/s (NVIDIA data sheet)
+INT8_TC_OPS_PER_S = 1.979e15
 #: H100 SXM INT32 operations/s: 132 SMs x 64 INT32 lanes (Hopper white
 #: paper) at the card's 1980 MHz boost clock
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
@@ -109,6 +114,12 @@ def bound_ms(rows: int, n: int, L: int) -> float:
     that does a GF(2^8) multiply-add as one operation, so there is no
     peak rate to hold the rows*n*L multiply-adds against."""
     return (n + rows) * L / HBM_BYTES_PER_S * 1e3
+
+
+def tc_floor_ms(rows: int, n: int, L: int) -> float:
+    """K2's floor on the tensor cores: its [8*rows, 8*n] x [8*n, L]
+    int8 product (2 operations per multiply-add) at the dense int8 peak."""
+    return 2 * 64 * rows * n * L / INT8_TC_OPS_PER_S * 1e3
 
 
 def kernel_entry(name: str, replaces: str, shape: str, err: int, ms: float,
@@ -211,6 +222,20 @@ def int32_counts(library: Path) -> dict[str, int]:
     check(set(counts) == {"straw2_choose_kernel", "ln_scores_kernel"},
           f"K3's kernels not found in the SASS of {library.name}: {sorted(counts)}")
     return counts
+
+
+def imma_count(library: Path) -> int:
+    """IMMA instructions in gf_apply_k2's SASS in `library` (cuobjdump)."""
+    from ceph_tpu_torch.ops.nvcc import nvcc
+
+    sass = subprocess.run([str(Path(nvcc()).parent / "cuobjdump"), "-sass", str(library)],
+                          capture_output=True, text=True, check=True).stdout
+    codes = [code for name, code in sass_functions(sass).items() if "gf_apply_k2" in name]
+    check(len(codes) == 1, f"gf_apply_k2 not found once in the SASS of {library.name}")
+    ops = collections.Counter(opcode(i) for _, i in codes[0])
+    log(f"    sass gf_apply_k2: {sum(ops.values())} instructions, {ops['IMMA']} IMMA; "
+        f"{dict(ops.most_common(12))}")
+    return ops["IMMA"]
 
 
 def crush_slice(torch, dev, card: str, smi: str) -> list[dict]:
@@ -501,13 +526,14 @@ def main() -> int:
         raise errors[0]
     log(f"[2 build] {time.perf_counter() - t0:.1f} s; rule: K1 when rows <= "
         f"{gf_kernels.MAX_ROWS} and rows*n*{gf_kernels.TABLE_BYTES_PER_ENTRY} <= "
-        f"{gf_kernels.K1_MAX_TABLE_BYTES} table bytes, else K2 in bands of "
-        f"up to {gf_kernels.MAX_ROWS} rows, the inputs in chunks that fit "
-        f"{gf_kernels.SMEM_PER_BLOCK} bytes of shared memory (k2_layout)")
+        f"{gf_kernels.K1_MAX_TABLE_BYTES} table bytes, else K2, the bitplane product "
+        f"on the tensor cores in blocks of {gf_kernels.K2_TILE_ROWS} rows x "
+        f"{gf_kernels.K2_TILE_COLS} columns (k2_layout)")
     for lib in (gf_kernels.LIBRARY, crush_kernels.LIBRARY):
         for line in lib.build_log.splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 log(f"    ptxas {lib.source.name}: {line.strip()}")
+    check(imma_count(gf_kernels.LIBRARY.path()) > 0, "gf_apply_k2's SASS holds no IMMA")
 
     def against_plain(mat, x, want_kernel: str) -> None:
         check(kernel_for(*mat.shape) == want_kernel,
@@ -530,8 +556,7 @@ def main() -> int:
         against_plain(mat, x, "gf_apply_k1")
         log(f"[3 K1] {name} {mat.shape} x L=3000: bytes equal")
 
-    # 4. K2 against the plain version; CLAY(12,4,d=15)'s [256, 960] repair
-    # takes its inputs in chunks
+    # 4. K2 against the plain version, CLAY(12,4,d=15)'s [256, 960] repair too
     clay = reg.factory({"plugin": "clay", "k": "8", "m": "4"})
     chunk = clay.get_chunk_size(8 * (4 << 20))
     Z = clay.get_sub_chunk_count()
@@ -544,14 +569,9 @@ def main() -> int:
                       ("CLAY(12,4,d=15) repair", wide)):
         x = rand_bytes(torch, (mat.shape[1], 3000), SEED + 7, dev)
         against_plain(mat, x, "gf_apply_k2")
-        band, step = k2_layout(*mat.shape)
-        log(f"[4 K2] {name} {mat.shape} x L=3000 (bands of {band} rows, inputs "
-            f"in chunks of {step}): bytes equal")
-    # the chunked form's time at a CLAY(12,4,d=15) repair of ~4 MiB chunks
-    x = rand_bytes(torch, wide.shape[1:] + (16384,), SEED + 9, dev)
-    wide_ms = time_ms(torch, gf_kernels.prepare(wide, [x]), iters=10)
-    log(f"[4 K2] CLAY(12,4,d=15) repair [256, 960] x 16384: {wide_ms:.4f} ms, "
-        f"bound {bound_ms(256, 960, 16384):.4f} ms by bytes")
+        lay = k2_layout(*mat.shape, 3000)
+        log(f"[4 K2] {name} {mat.shape} x L=3000 ({lay.row_tiles} x {lay.col_tiles} "
+            f"blocks, {lay.op_pitch // gf_kernels.K2_STAGE_ROWS} stages of K): bytes equal")
 
     # ---- the main path: counts set to 0 here, read after phase 8 ----
     gf_kernels.reset_launch_counts()
@@ -630,12 +650,15 @@ def main() -> int:
 
     # 9. the kernels line, at the main path's shapes
     kernels = []
+    wide_in = rand_bytes(torch, wide.shape[1:] + (16384,), SEED + 9, dev)
     cases = (
         ("gf_apply_k1", "ceph_tpu/ops/pallas_gf.py:184", rs84.coding, stripes,
          "RS(8,4) fused encode, 256 stripes of [8, 131072]"),
         ("gf_apply_k2", "ceph_tpu/ops/pallas_gf.py:202", M_rep,
          [clay.gather_repair_input(allc, 0, chunk // Z, helpers)],
          f"CLAY(8,4,d=11) repair [64, 176] x {chunk // Z}"),
+        ("gf_apply_k2", "ceph_tpu/ops/pallas_gf.py:202", wide, [wide_in],
+         "CLAY(12,4,d=15) repair [256, 960] x 16384 (~4 MiB chunks)"),
     )
     for name, replaces, mat, segs, shape in cases:
         rows, n = mat.shape
@@ -654,6 +677,7 @@ def main() -> int:
         plain_ms = time_ms(torch, lambda: apply_matrix_plain(mat, whole), iters=3, warmup=1)
         bound = bound_ms(rows, n, L)
         moved = (rows + n) * L
+        tc = {"tc_floor_ms": tc_floor_ms(rows, n, L)} if name == "gf_apply_k2" else {}
         kernels.append({
             "name": name, "route": "cuda", "source": "ceph_tpu_torch/csrc/gf_apply.cu",
             "replaces": replaces, "launches": launches[name], "max_abs_err": err,
@@ -661,10 +685,12 @@ def main() -> int:
             "library_ms": None, "wrapper_ms": wrapper_ms, "shape": shape,
             "bytes_moved": moved,
             "gib_per_s": moved / (ms * 1e-3) / 2**30, "card": card, "nvidia_smi": smi,
+            **tc,
         })
         log(f"[9 {name}] {shape}: {ms:.4f} ms ({moved / (ms * 1e-3) / 2**30:.1f} GiB/s "
-            f"moved), bound {bound:.4f} ms by bytes, wrapper {wrapper_ms:.4f} ms, "
-            f"plain {plain_ms:.3f} ms")
+            f"moved), bound {bound:.4f} ms by bytes"
+            + (f", tensor-core floor {tc['tc_floor_ms']:.4f} ms" if tc else "")
+            + f", wrapper {wrapper_ms:.4f} ms, plain {plain_ms:.3f} ms")
     kernels += crush_slice(torch, dev, card, smi)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi)

@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card against their plain PyTorch
 versions, byte for byte, at edge-case shapes: K1 and K2 (ragged lengths,
-unaligned and strided rows, several segments in one launch, short last
-K2 band, K2 taking its inputs in chunks); K3 (ragged lane counts, bucket
+unaligned and strided rows, several segments in one launch, 333 of them
+for K2; K2 at rows around its 8-row tiles, n around its 4-row k-steps
+and 64-row stages, L one short of and one past its 128-column tiles); K3 (ragged lane counts, bucket
 widths 1 to 128, empty buckets, weight-set positions) and both forms of
 the crush_ln probe over every u; and the batch mapper on the card.
 Marked ``cuda``: each test skips without a card.  On a GPU machine (the
@@ -36,6 +37,9 @@ def _rand(rng, shape):
     (4, 8, 3000), (1, 2, 9001), (8, 8, 4096), (13, 5, 4101), (16, 32, 777),
     (64, 176, 1030), (13, 40, 300), (17, 3, 5000), (2, 400, 129),
     (16, 228, 3001), (5, 2000, 1031), (256, 960, 1030),
+    # K2's edges: rows 1, 7, 9 (n large enough for K2), 63, 65 with n 1, 3, 5
+    (1, 600, 129), (7, 80, 127), (9, 60, 257), (63, 1, 255), (63, 5, 129),
+    (65, 3, 127), (65, 5, 1031), (65, 1, 128), (17, 65, 256), (24, 64, 384),
 ])
 def test_kernel_matches_plain(cuda, rows, n, L):
     rng = np.random.default_rng(rows * 1000 + n)
@@ -49,18 +53,26 @@ def test_kernel_matches_plain(cuda, rows, n, L):
     np.testing.assert_array_equal(out.cpu().numpy(), apply_ref(mat, x.cpu().numpy()))
 
 
-@pytest.mark.parametrize("rows,n", [(4, 8), (64, 176), (256, 960)])
-def test_segments_strided_and_unaligned(cuda, rows, n):
+@pytest.mark.parametrize("rows,n,nseg", [
+    (4, 8, 5), (64, 176, 5), (256, 960, 5), (64, 176, 333),
+])
+def test_segments_strided_and_unaligned(cuda, rows, n, nseg):
     """One launch over views at odd offsets and row strides, with ragged
     and empty segments, equals the plain apply of their concatenation."""
-    rng = np.random.default_rng(rows + n)
+    rng = np.random.default_rng(rows + n + nseg)
     mat = _rand(rng, (rows, n))
     base = torch.from_numpy(_rand(rng, (n, 20011))).to(cuda)
     segs = [base[:, 1:4097], base[:, 4100:4100], base[:, 5003:9010],
             base[:, 9999:20011], base[:, 3:6]]
+    for start, length in zip(rng.integers(0, 19800, nseg - len(segs)),
+                             rng.integers(0, 200, nseg - len(segs))):
+        segs.append(base[:, start:start + length])
+    name = kernel_for(rows, n)
+    before = gf_kernels.LAUNCHES[name]
     out = gf_apply(mat, segs)
     want = apply_matrix_plain(mat, torch.cat(segs, dim=1).contiguous())
     torch.cuda.synchronize()
+    assert gf_kernels.LAUNCHES[name] == before + 1
     assert torch.equal(out, want)
 
 
@@ -79,7 +91,8 @@ def test_fused_encode_one_launch(cuda):
 
 
 def test_clay_wide_repair(cuda):
-    """CLAY(12,4,d=15) repair: a [256, 960] matrix, K2 in input chunks."""
+    """CLAY(12,4,d=15) repair: a [256, 960] matrix, all 960 inputs in
+    one K2 launch."""
     from ceph_tpu_torch.ec.registry import ErasureCodePluginRegistry
 
     clay = ErasureCodePluginRegistry.instance().factory(

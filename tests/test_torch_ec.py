@@ -18,7 +18,7 @@ from ceph_tpu_torch import gf as tgf
 from ceph_tpu_torch.ec.interface import InvalidProfile
 from ceph_tpu_torch.ec.registry import ErasureCodePluginRegistry as TorchRegistry
 from ceph_tpu_torch.ec.state import codec_from_arrays, repair_matrix_name
-from ceph_tpu_torch.ops.gf_kernels import k2_layout, kernel_for
+from ceph_tpu_torch.ops.gf_kernels import SMEM_PER_BLOCK, k2_layout, kernel_for
 
 CPU = "cpu"
 
@@ -126,16 +126,18 @@ def test_clay_encode_decode_repair_match_jax():
 
 def test_clay_wide_repair_matches_jax():
     """CLAY(12,4,d=15): q=4, Z=256, a [256, 960] repair matrix, which
-    K2 takes in input chunks on the card.  The matrix and the parity
-    equal the JAX package's, and the CPU repair rebuilds the chunk."""
+    K2 takes in one launch on the card, all 960 input rows in its K
+    loop.  The matrix and the parity equal the JAX package's, and the CPU
+    repair rebuilds the chunk."""
     profile = {"plugin": "clay", "k": "12", "m": "4", "d": "15"}
     jc, tc = _jax(profile), _torch(profile)
     helpers = tuple(range(1, 16))
     M = tc.repair_matrix(0, helpers)
     np.testing.assert_array_equal(jc.repair_matrix(0, helpers), M)
     assert M.shape == (256, 960) and kernel_for(*M.shape) == "gf_apply_k2"
-    assert k2_layout(*M.shape)[1] < 960
     L = 2 * tc.get_sub_chunk_count()
+    lay = k2_layout(*M.shape, L)
+    assert lay.op_pitch == 960 and lay.smem_bytes <= SMEM_PER_BLOCK
     data = np.random.default_rng(12).integers(0, 256, (12, L), dtype=np.uint8)
     parity = _np(tc.encode_chunks(data))
     np.testing.assert_array_equal(parity, _np(jc.encode_chunks(data)))

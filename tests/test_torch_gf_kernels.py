@@ -3,7 +3,8 @@ JAX package's Pallas kernel and the numpy reference codec.
 
 On the CPU the wrapper runs the plain PyTorch version, so these hold the
 plain version (and the host-side parts of the kernels: split-nibble
-tables, the K1/K2 rule, K2's bands) to the reference.  The Pallas kernel
+tables, the K1/K2 rule, K2's operand and grid) to the reference.  K2's
+arithmetic runs here in its operand's own order and padding.  The Pallas kernel
 runs in interpret mode, as tests/test_pallas.py runs it, on the cases of
 tests/test_pallas.py:31-105.  Bytes must be identical (no tolerance).
 The kernels themselves are held to the plain version on the card by
@@ -16,6 +17,7 @@ import torch
 from ceph_tpu.gf.matrix import (
     cauchy_good_coding_matrix,
     decode_matrix_for,
+    matrix_to_bitmatrix,
     systematic_generator,
     vandermonde_coding_matrix,
 )
@@ -25,11 +27,13 @@ from ceph_tpu_torch.gf.tables import GF_MUL_TABLE
 from ceph_tpu_torch.ops import gf_kernels
 from ceph_tpu_torch.ops.gf_kernels import (
     apply_matrix_plain,
+    device_operand,
     gf_apply,
     k2_layout,
-    k2_smem_bytes,
+    k2_operand,
     kernel_for,
     nibble_tables,
+    operand_shape,
 )
 
 
@@ -123,17 +127,84 @@ def test_kernel_rule(shape, want):
     (1, 1), (13, 40), (64, 176), (2, 400), (256, 960), (300, 5000),
 ])
 def test_k2_bands_fit_shared_memory(rows, n):
-    """K2's band and input chunk fit a block's shared memory, the chunks
-    are equal and cover n, and n is chunked only when it must be."""
-    band, chunk = k2_layout(rows, n)
-    assert band == min(rows, gf_kernels.MAX_ROWS)
-    assert 1 <= chunk <= n
-    assert k2_smem_bytes(chunk, band) <= gf_kernels.SMEM_PER_BLOCK
-    chunks = -(-n // chunk)
-    assert -(-n // chunks) == chunk
-    if chunk < n:
-        assert k2_smem_bytes(n, band) > gf_kernels.SMEM_PER_BLOCK
-        assert k2_smem_bytes(-(-n // (chunks - 1)), band) > gf_kernels.SMEM_PER_BLOCK
+    """K2's row tiles cover the rows and its column tiles a segment's
+    length, its operand covers n in whole stages, and one block's two
+    stages fit a block's shared memory for any n (the K loop needs no
+    input chunks)."""
+    L = 65536 + 3
+    lay = k2_layout(rows, n, L)
+    assert (lay.row_tiles - 1) * gf_kernels.K2_TILE_ROWS < rows <= \
+        lay.row_tiles * gf_kernels.K2_TILE_ROWS
+    assert (lay.col_tiles - 1) * gf_kernels.K2_TILE_COLS < L <= \
+        lay.col_tiles * gf_kernels.K2_TILE_COLS
+    assert n <= lay.op_pitch < n + gf_kernels.K2_STAGE_ROWS
+    assert lay.op_pitch % gf_kernels.K2_STAGE_ROWS == 0
+    assert lay.smem_bytes <= gf_kernels.SMEM_PER_BLOCK
+    # four blocks of 4 warps share an SM (228 KiB of shared memory each)
+    assert 4 * lay.smem_bytes <= 228 * 1024
+    assert lay.smem_bytes == k2_layout(1, 1, 1).smem_bytes
+
+
+@pytest.mark.parametrize("rows,n", [(1, 1), (13, 40), (17, 3), (9, 70), (64, 176)])
+def test_k2_operand_is_the_permuted_bitmatrix(rows, n):
+    """Unpacked, with its row permutation and padding undone, K2's
+    operand is the JAX package's GF(2) bitmatrix; the padding is zero."""
+    mat = np.random.default_rng(rows * 100 + n).integers(0, 256, (rows, n), np.uint8)
+    op = k2_operand(mat)
+    lay = k2_layout(rows, n, 1)
+    assert op.dtype == np.uint8 and op.shape == (64 * lay.row_tiles, lay.op_pitch)
+    bits = np.unpackbits(op, axis=1, bitorder="little")
+    plain = np.empty_like(bits)
+    for tile in range(lay.row_tiles):
+        for b in range(8):
+            for i in range(8):  # tile row 8b + i: bit b of output row 8 * tile + i
+                plain[8 * (8 * tile + i) + b] = bits[64 * tile + 8 * b + i]
+    assert not plain[8 * rows:].any() and not plain[:, 8 * n:].any()
+    np.testing.assert_array_equal(plain[:8 * rows, :8 * n], matrix_to_bitmatrix(mat))
+
+
+def _k2_product(mat, data):
+    """K2's arithmetic on the host, in its operand's own order and
+    padding: the integer product of the operand's bits with the input's
+    bits (k = 8 * j + bit, input rows past n zero), mod 2, and each
+    output byte packed from tile rows 8 * b + i as the epilogue does."""
+    rows, n = mat.shape
+    op = k2_operand(mat)
+    pitch = op.shape[1]
+    a = np.unpackbits(op, axis=1, bitorder="little").astype(np.int64)
+    x = np.zeros((pitch, data.shape[1]), np.uint8)
+    x[:n] = data
+    b = np.unpackbits(x[:, None, :], axis=1, bitorder="little").reshape(8 * pitch, -1)
+    par = ((a @ b.astype(np.int64)) & 1).reshape(-1, 8, 8, data.shape[1])  # [tile, b, i, L]
+    out = (par << np.arange(8)[None, :, None, None]).sum(axis=1)
+    return out.reshape(-1, data.shape[1])[:rows].astype(np.uint8)
+
+
+@pytest.mark.parametrize("rows,n,L", [
+    (13, 41, 300), (17, 3, 129), (9, 5, 77), (2, 70, 50), (66, 130, 40),
+])
+def test_k2_product_matches_blocked_pallas(monkeypatch, rows, n, L):
+    """Rows not a multiple of 8, n not a multiple of 4: K2's host
+    product equals the numpy reference and the JAX row-blocked kernel."""
+    monkeypatch.setenv("CEPH_TPU_GF_TILE", "256")
+    monkeypatch.setenv("CEPH_TPU_GF_ROWBLOCKS", "4")
+    rng = np.random.default_rng(rows + 1000 * n)
+    mat = rng.integers(0, 256, (rows, n), np.uint8)
+    data = rng.integers(0, 256, (n, L), np.uint8)
+    got = _k2_product(mat, data)
+    np.testing.assert_array_equal(got, apply_ref(mat, data))
+    np.testing.assert_array_equal(
+        got, np.asarray(apply_matrix_pallas(mat, data, interpret=True)))
+
+
+@pytest.mark.parametrize("shape", [(4, 8), (13, 40), (256, 960)])
+def test_device_operand_follows_the_rule(shape):
+    """The operand the cache holds is the one the picked kernel reads."""
+    mat = np.random.default_rng(shape[0]).integers(0, 256, shape, np.uint8)
+    op = device_operand(mat)
+    assert op.shape == operand_shape(*shape)
+    want = nibble_tables(mat) if kernel_for(*shape) == "gf_apply_k1" else k2_operand(mat)
+    np.testing.assert_array_equal(op, want)
 
 
 # ---- the wrapper on CPU tensors -------------------------------------------
