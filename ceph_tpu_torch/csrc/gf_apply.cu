@@ -43,21 +43,23 @@
 //     of a word that holds the 4 rows' bytes.  The A word is 4 bytes of an
 //     operand row; the B words come from a 4x4 byte transpose (__byte_perm)
 //     of 4 input rows at the lane's 4 columns.
-//   * A warp owns the block's 64 bitmatrix rows (8 output rows) x 32 byte
-//     columns, in 4 m16 x 4 n8 fragments.  Its n8 fragment f takes column
-//     4*g + f for lane group g, so that a lane's accumulators (rows g and
+//   * A warp owns the block's 64 bitmatrix rows (8 output rows) x 64 byte
+//     columns, in 4 m16 x 8 n8 fragments.  Its n8 fragment f takes column
+//     8*g + f for lane group g, so that a lane's accumulators (rows g and
 //     g + 8 of each m16 fragment, columns 2t and 2t + 1) are bits 0..7 of
-//     output row g over 8 consecutive columns: each lane packs its own
-//     8 output bytes and stores them, with no shuffle.  Sums are exact
+//     output row g over 16 consecutive columns: each lane packs its own
+//     16 output bytes and stores them, with no shuffle.  Sums are exact
 //     mod 2^32, so the parity is right for any n.
-//   * Blocks of 4 warps over (8-output-row tiles) x (128-column tiles) x
-//     (segments, on grid.y): 4096 blocks at the CLAY(8,4,d=11) repair.
+//   * Blocks of 4 warps over (8-output-row tiles) x (256-column tiles) x
+//     (segments, on grid.y): 2048 blocks at the CLAY(8,4,d=11) repair.
 //     A block loops over K in stages of K2_STAGE_ROWS input rows, staged
 //     with cp.async into a double buffer (16-byte copies when the segment
 //     is 16-byte aligned, 4-byte copies when it is word aligned, byte
 //     loads otherwise; bytes past the segment's end and rows past n read
-//     0).  26 KiB of shared memory and at most 128 registers a thread let
-//     4 blocks (16 warps) share an SM.
+//     0).  The 128 accumulators take ~214 registers a thread, so 2 blocks
+//     (8 warps) share an SM; a 64 x 32 warp tile at 4 blocks an SM issues
+//     5.3 instructions per mma against 3.9 here and was 7-10 % slower on
+//     the card (PERF.md, PR 3).
 //
 // Several input segments (the stripes of a fused flush) go through one
 // launch of either kernel: segment s is [n, len_s] at its own pointer and
@@ -241,9 +243,9 @@ gf_apply_k1(const uint4* __restrict__ tables, int rows, int n,
 
 constexpr int K2_WARPS = 4;
 constexpr int K2_THREADS = 32 * K2_WARPS;
-constexpr int K2_NFRAG = 4;                             // n8 fragments per warp
-constexpr int K2_WARP_COLS = 8 * K2_NFRAG;              // 32 byte columns
-constexpr int K2_TILE_COLS = K2_WARPS * K2_WARP_COLS;   // 128 byte columns per block
+constexpr int K2_NFRAG = 8;                             // n8 fragments per warp
+constexpr int K2_WARP_COLS = 8 * K2_NFRAG;              // 64 byte columns
+constexpr int K2_TILE_COLS = K2_WARPS * K2_WARP_COLS;   // 256 byte columns per block
 constexpr int K2_TILE_ROWS = 8;                         // output rows per block
 constexpr int K2_TILE_BITROWS = 8 * K2_TILE_ROWS;       // operand rows per block
 constexpr int K2_STAGE_ROWS = 64;                       // input rows per stage
@@ -392,7 +394,7 @@ __device__ __forceinline__ void k2_pack(const int (&acc)[4][K2_NFRAG][4],
     }
 }
 
-__global__ void __launch_bounds__(K2_THREADS, 4)
+__global__ void __launch_bounds__(K2_THREADS, 2)
 gf_apply_k2(const uint8_t* __restrict__ op, int rows, int n, int op_pitch,
             const long long* __restrict__ segs, uint8_t* __restrict__ out,
             long long out_stride) {

@@ -50,9 +50,9 @@ TABLE_BYTES_PER_ENTRY = 32
 #: 352 KiB.
 K1_MAX_TABLE_BYTES = 16 * 1024
 #: K2's block tile (csrc K2_TILE_ROWS, K2_TILE_COLS): 8 output rows (64
-#: bitmatrix rows) x 128 byte columns, 4 warps of 32 columns each
+#: bitmatrix rows) x 256 byte columns, 4 warps of 64 columns each
 K2_TILE_ROWS = 8
-K2_TILE_COLS = 128
+K2_TILE_COLS = 256
 #: input rows per shared-memory stage (csrc K2_STAGE_ROWS); the operand's
 #: rows are padded to a multiple of it
 K2_STAGE_ROWS = 64
@@ -95,7 +95,7 @@ def k2_layout(rows: int, n: int, max_len: int) -> K2Layout:
     over segments at most ``max_len`` long.  A stage holds the block's
     64 operand rows x K2_STAGE_ROWS bytes and K2_STAGE_ROWS input rows x
     K2_TILE_COLS columns; the block loops over the stages, so any n fits
-    the same 26 KiB.  CLAY(8,4,d=11) repair [64, 176] x 65,536: 8 x 512
+    the same 26 KiB.  CLAY(8,4,d=11) repair [64, 176] x 65,536: 8 x 256
     blocks."""
     stage = 64 * K2_OP_SMEM_PITCH + K2_STAGE_ROWS * K2_TILE_COLS
     return K2Layout(-(-rows // K2_TILE_ROWS), -(-max_len // K2_TILE_COLS),

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """K2 against other builds of csrc/gf_apply.cu, in turns, on one card.
 
-    python3 port_runs/k2_turns.py [--old OLD.cu] [--variants nf8,unroll4,...]
+    python3 port_runs/k2_turns.py [--old OLD.cu] [--variants nf4,unroll4,...]
 
 Times ceph_tpu_torch's gf_apply_k2 at the two CLAY repair shapes of
 chip_smoke.py (CLAY(8,4,d=11) [64, 176] x 65,536 and CLAY(12,4,d=15)
@@ -46,11 +46,12 @@ from ceph_tpu_torch.ops.nvcc import NVCC_FLAGS, nvcc  # noqa: E402
 BUILD = ROOT / "build" / "k2_turns"
 #: name -> (text in csrc/gf_apply.cu, replacement)
 VARIANTS = {
-    # 8 n8 fragments (64 columns) a warp, 2 blocks of 4 warps an SM
-    "nf8": [("constexpr int K2_NFRAG = 4;", "constexpr int K2_NFRAG = 8;"),
-            ("__launch_bounds__(K2_THREADS, 4)", "__launch_bounds__(K2_THREADS, 2)")],
+    # 4 n8 fragments (32 columns) a warp in at most 128 registers: 4
+    # blocks of 4 warps an SM
+    "nf4": [("constexpr int K2_NFRAG = 8;", "constexpr int K2_NFRAG = 4;"),
+            ("__launch_bounds__(K2_THREADS, 2)", "__launch_bounds__(K2_THREADS, 4)")],
     # room for up to 168 registers a thread: 3 blocks an SM
-    "bounds3": [("__launch_bounds__(K2_THREADS, 4)", "__launch_bounds__(K2_THREADS, 3)")],
+    "bounds3": [("__launch_bounds__(K2_THREADS, 2)", "__launch_bounds__(K2_THREADS, 3)")],
     # 32 input rows a stage (the operand's 64-row padding still covers it)
     "stage32": [("constexpr int K2_STAGE_ROWS = 64;", "constexpr int K2_STAGE_ROWS = 32;")],
     # the k-step loop unrolled 4 times instead of 2

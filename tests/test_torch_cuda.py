@@ -2,7 +2,8 @@
 versions, byte for byte, at edge-case shapes: K1 and K2 (ragged lengths,
 unaligned and strided rows, several segments in one launch, 333 of them
 for K2; K2 at rows around its 8-row tiles, n around its 4-row k-steps
-and 64-row stages, L one short of and one past its 128-column tiles); K3 (ragged lane counts, bucket
+and 64-row stages, L one short of and one past its 64-column warp
+tiles and 256-column block tiles); K3 (ragged lane counts, bucket
 widths 1 to 128, empty buckets, weight-set positions) and both forms of
 the crush_ln probe over every u; and the batch mapper on the card.
 Marked ``cuda``: each test skips without a card.  On a GPU machine (the
@@ -40,6 +41,7 @@ def _rand(rng, shape):
     # K2's edges: rows 1, 7, 9 (n large enough for K2), 63, 65 with n 1, 3, 5
     (1, 600, 129), (7, 80, 127), (9, 60, 257), (63, 1, 255), (63, 5, 129),
     (65, 3, 127), (65, 5, 1031), (65, 1, 128), (17, 65, 256), (24, 64, 384),
+    (20, 70, 511), (33, 9, 513),
 ])
 def test_kernel_matches_plain(cuda, rows, n, L):
     rng = np.random.default_rng(rows * 1000 + n)

@@ -140,8 +140,9 @@ def test_k2_bands_fit_shared_memory(rows, n):
     assert n <= lay.op_pitch < n + gf_kernels.K2_STAGE_ROWS
     assert lay.op_pitch % gf_kernels.K2_STAGE_ROWS == 0
     assert lay.smem_bytes <= gf_kernels.SMEM_PER_BLOCK
-    # four blocks of 4 warps share an SM (228 KiB of shared memory each)
-    assert 4 * lay.smem_bytes <= 228 * 1024
+    # shared memory does not cap the blocks an SM holds below the two
+    # that K2's registers allow (228 KiB of shared memory an SM)
+    assert 2 * lay.smem_bytes <= 228 * 1024
     assert lay.smem_bytes == k2_layout(1, 1, 1).smem_bytes
 
 
