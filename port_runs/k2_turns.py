@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """K2 against other builds of csrc/gf_apply.cu, in turns, on one card.
 
-    python3 port_runs/k2_turns.py [--old OLD.cu] [--variants nf4,unroll4,...]
+    python3 port_runs/k2_turns.py [--old OLD.cu] [--variants nf4]
 
 Times ceph_tpu_torch's gf_apply_k2 at the two CLAY repair shapes of
 chip_smoke.py (CLAY(8,4,d=11) [64, 176] x 65,536 and CLAY(12,4,d=15)
@@ -12,7 +12,7 @@ chip_smoke.py (CLAY(8,4,d=11) [64, 176] x 65,536 and CLAY(12,4,d=15)
     source of commit 9166054 does
     (``git show 9166054:ceph_tpu_torch/csrc/gf_apply.cu > old.cu``);
   * ``--variants``: the package's own source with constants changed
-    (``VARIANTS``; ``a+b`` applies both), built beside it.
+    (``VARIANTS``), built beside it.
 
 Every build's output is held to apply_matrix_plain first.  Then each is
 timed (median of 30 launches, CUDA events) in turns, forward and back
@@ -46,17 +46,10 @@ from ceph_tpu_torch.ops.nvcc import NVCC_FLAGS, nvcc  # noqa: E402
 BUILD = ROOT / "build" / "k2_turns"
 #: name -> (text in csrc/gf_apply.cu, replacement)
 VARIANTS = {
-    # 4 n8 fragments (32 columns) a warp in at most 128 registers: 4
-    # blocks of 4 warps an SM
+    # the 64 x 32 warp tile: 4 n8 fragments a warp in at most 128
+    # registers, 4 blocks of 4 warps an SM
     "nf4": [("constexpr int K2_NFRAG = 8;", "constexpr int K2_NFRAG = 4;"),
             ("__launch_bounds__(K2_THREADS, 2)", "__launch_bounds__(K2_THREADS, 4)")],
-    # room for up to 168 registers a thread: 3 blocks an SM
-    "bounds3": [("__launch_bounds__(K2_THREADS, 2)", "__launch_bounds__(K2_THREADS, 3)")],
-    # 32 input rows a stage (the operand's 64-row padding still covers it)
-    "stage32": [("constexpr int K2_STAGE_ROWS = 64;", "constexpr int K2_STAGE_ROWS = 32;")],
-    # the k-step loop unrolled 4 times instead of 2
-    "unroll4": [("#pragma unroll 2\n    for (int s = 0; s < steps; ++s)",
-                 "#pragma unroll 4\n    for (int s = 0; s < steps; ++s)")],
 }
 
 
@@ -134,11 +127,11 @@ def main() -> int:
     jobs = {}
     for v in names:
         text = source
-        for a, b in (sub for part in v.split("+") for sub in VARIANTS[part]):
+        for a, b in VARIANTS[v]:
             if a not in text:
                 raise ValueError(f"variant {v}: {a!r} not in {gk.LIBRARY.source.name}")
             text = text.replace(a, b)
-        jobs[v] = BUILD / f"gf_apply_{v.replace('+', '_')}.cu"
+        jobs[v] = BUILD / f"gf_apply_{v}.cu"
         jobs[v].write_text(text)
     if args.old:
         jobs["old"] = args.old
@@ -146,7 +139,7 @@ def main() -> int:
 
     def run(key, src):
         try:
-            libs[key] = build(src, BUILD / f"lib_{key.replace('+', '_')}.so")
+            libs[key] = build(src, BUILD / f"lib_{key}.so")
         except Exception as e:  # raised below
             errors.append(e)
 
@@ -163,7 +156,7 @@ def main() -> int:
             log(f"    ptxas gf_apply.cu: {line.strip()}")
     loop_per_imma("new", gk.LIBRARY.path())
     for v in names:
-        loop_per_imma(v, BUILD / f"lib_{v.replace('+', '_')}.so")
+        loop_per_imma(v, BUILD / f"lib_{v}.so")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     for key, lib in libs.items():
         lib.gf_apply_k2_launch.restype = i
