@@ -59,7 +59,7 @@
 //     0).  The 128 accumulators take ~214 registers a thread, so 2 blocks
 //     (8 warps) share an SM; a 64 x 32 warp tile at 4 blocks an SM issues
 //     5.3 instructions per mma against 3.9 here and was 7-10 % slower on
-//     the card (PERF.md, PR 3).
+//     the card (PERF.md, Findings).
 //
 // Several input segments (the stripes of a fused flush) go through one
 // launch of either kernel: segment s is [n, len_s] at its own pointer and
