@@ -11,7 +11,11 @@ matrix apply: two hand-written CUDA kernels in csrc/gf_apply.cu and their
 plain PyTorch version; the straw2 draw K3 and the crush_ln probe in
 csrc/crush_straw2.cu), ec/ (interface, registry, stripe math, the RS,
 SHEC and CLAY plugins), crush/ (map model, builder, scalar and batched
-mappers, CrushWrapper) and tools/crushtool.
+mappers, CrushWrapper), tools/crushtool, and the OSD's data plane: osd/
+(the write and read batchers, the read cache) on ops/device_pool.py,
+ops/pipeline.py and the runtime in common/ (config and options,
+context, failpoints, throttle, perf counters, tracer, kernel
+telemetry).
 """
 from .common.device import resolve_device
 

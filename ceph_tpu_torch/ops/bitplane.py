@@ -2,7 +2,8 @@
 
 Every codec's device work goes through ``apply_matrix`` or
 ``fused_encode``: a [rows, n] GF(2^8) matrix applied to [n, L] byte
-shards.  On ``cuda`` they launch the hand-written kernels of
+shards.  ``fused_encode_async`` is the write batcher's flush: host
+stripes in, parity left on the card in a pooled buffer, no sync.  On ``cuda`` they launch the hand-written kernels of
 ops/gf_kernels.py (K1 or K2, by the rule stated there); on ``cpu``
 (asked for explicitly) they run its plain PyTorch version.  There is one
 path per device: no kernel policy, no fallback latch, no second
@@ -70,9 +71,15 @@ TABLES = TableCache()
 
 
 def _apply(mat: np.ndarray, segments: list[torch.Tensor], device: torch.device,
-           mat_key: str | None) -> torch.Tensor:
+           mat_key: str | None, out: torch.Tensor | None = None) -> torch.Tensor:
     tables = TABLES.get(mat, device, mat_key) if device.type == "cuda" else None
-    return gf_apply(mat, segments, tables=tables)
+    return gf_apply(mat, segments, tables=tables, out=out)
+
+
+def current_backend(device=None) -> str:
+    """The device type the apply seam runs on for `device` ('cuda' or
+    'cpu') — telemetry provenance for call sites above this seam."""
+    return resolve_device(device).type
 
 
 def apply_matrix(mat: np.ndarray, chunks, device=None,
@@ -89,17 +96,39 @@ def apply_matrix(mat: np.ndarray, chunks, device=None,
 
 
 def fused_encode(mat: np.ndarray, chunks_list, device=None,
-                 mat_key: str | None = None) -> torch.Tensor:
+                 mat_key: str | None = None,
+                 out: torch.Tensor | None = None) -> torch.Tensor:
     """Several [k, L_s] stripes -> ONE [m, sum L_s] parity tensor in ONE
-    kernel launch (counterpart of ``fused_encode_async``).  The launcher
-    takes the list as it is (each stripe at its own address and row
-    stride); nothing is concatenated on the host."""
+    kernel launch, into `out` when given.  The launcher takes the list as
+    it is (each stripe at its own address and row stride); nothing is
+    concatenated on the host."""
     dev = resolve_device(device)
     segs = [as_bytes_tensor(c, dev) for c in chunks_list]
     for s in segs:
         if s.dim() != 2:
             raise ValueError(f"each stripe must be [k, L], got {tuple(s.shape)}")
-    return _apply(np.asarray(mat), segs, dev, mat_key)
+    return _apply(np.asarray(mat), segs, dev, mat_key, out)
+
+
+def fused_encode_async(mat: np.ndarray, chunks_list, device=None,
+                       mat_key: str | None = None) -> torch.Tensor:
+    """Host [k, L_s] stripes -> ONE [m, sum L_s] parity tensor left on
+    `device`, with no sync: the write batcher's pooled flush.  The
+    stripes are packed into a pinned staging buffer and committed with
+    one asynchronous copy into a pooled device buffer
+    (``device_pool.commit``); ``fused_encode`` applies the matrix in one
+    launch into a pooled output; the input buffer goes back to the pool
+    behind the launch.  The caller owns the single materialization and
+    returns the parity buffer to ``POOL`` after it."""
+    from .device_pool import POOL, commit
+
+    dev = resolve_device(device)
+    mat = np.ascontiguousarray(mat, dtype=np.uint8)
+    packed = commit(chunks_list, dev)
+    out = POOL.empty((mat.shape[0], packed.shape[1]), device=dev)
+    parity = fused_encode(mat, [packed], dev, mat_key, out=out)
+    POOL.release(packed)
+    return parity
 
 
 class BitplaneCodec:

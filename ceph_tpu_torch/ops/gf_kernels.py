@@ -266,18 +266,32 @@ def prepare(mat: np.ndarray, segments, tables: torch.Tensor | None = None
     """Check the inputs of one K1/K2 launch on CUDA tensors and stage it
     (see ``gf_apply``) without launching."""
     mat = _checked_matrix(mat)
-    return _prepare(mat, _checked_segments(mat.shape[1], segments), tables)
+    segs = _checked_segments(mat.shape[1], segments)
+    return _prepare(mat, segs, tables, _checked_out(mat, segs, None))
+
+
+def _checked_out(mat: np.ndarray, segs: list[torch.Tensor],
+                 out: torch.Tensor | None) -> torch.Tensor:
+    """The [rows, sum L_s] output: `out` when given (checked), else new."""
+    shape = (mat.shape[0], sum(s.shape[1] for s in segs))
+    dev = segs[0].device
+    if out is None:
+        return torch.empty(shape, dtype=torch.uint8, device=dev)
+    if (out.dtype != torch.uint8 or tuple(out.shape) != shape
+            or not out.is_contiguous() or out.device != dev):
+        raise ValueError(f"out must be a contiguous {list(shape)} uint8 tensor "
+                         f"on {dev}")
+    return out
 
 
 def _prepare(mat: np.ndarray, segs: list[torch.Tensor],
-             tables: torch.Tensor | None) -> Launch:
-    """``prepare`` for a matrix and segments already checked."""
+             tables: torch.Tensor | None, out: torch.Tensor) -> Launch:
+    """``prepare`` for a matrix, segments and output already checked."""
     rows, n = mat.shape
     dev = segs[0].device
     if dev.type != "cuda":
         raise ValueError(f"the GF kernels run on CUDA tensors, not {dev}")
-    total = sum(s.shape[1] for s in segs)
-    out = torch.empty((rows, total), dtype=torch.uint8, device=dev)
+    total = out.shape[1]
     name = kernel_for(rows, n)
     shape = operand_shape(rows, n)
     if tables is None:
@@ -299,11 +313,12 @@ def _prepare(mat: np.ndarray, segs: list[torch.Tensor],
     return Launch(name, args, out, (tables, desc_dev, *segs))
 
 
-def gf_apply(mat: np.ndarray, segments, tables: torch.Tensor | None = None
-             ) -> torch.Tensor:
+def gf_apply(mat: np.ndarray, segments, tables: torch.Tensor | None = None,
+             out: torch.Tensor | None = None) -> torch.Tensor:
     """``mat [rows, n]`` applied to the column concatenation of
     ``segments`` (each a [n, L_s] uint8 tensor, rows may be strided):
-    one [rows, sum L_s] output.
+    one [rows, sum L_s] output, written into ``out`` when given (a pooled
+    buffer, ops/device_pool.py).
 
     CUDA tensors: ONE launch of K1 or K2 (``kernel_for``) over every
     segment, with no host-side concatenation or padding; ``tables`` is
@@ -312,10 +327,10 @@ def gf_apply(mat: np.ndarray, segments, tables: torch.Tensor | None = None
     mat = _checked_matrix(mat)
     rows, n = mat.shape
     segs = _checked_segments(n, segments)
-    dev = segs[0].device
-    if dev.type == "cpu":
-        return apply_matrix_plain(mat, segs[0] if len(segs) == 1 else torch.cat(segs, 1))
+    out = _checked_out(mat, segs, out)
+    if segs[0].device.type == "cpu":
+        return out.copy_(apply_matrix_plain(
+            mat, segs[0] if len(segs) == 1 else torch.cat(segs, 1)))
     if rows == 0 or n == 0 or all(s.shape[1] == 0 for s in segs):
-        total = sum(s.shape[1] for s in segs)
-        return torch.zeros((rows, total), dtype=torch.uint8, device=dev)
-    return _prepare(mat, segs, tables)()
+        return out.zero_()
+    return _prepare(mat, segs, tables, out)()

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main paths once on one GPU: the
-erasure-code data plane and batched CRUSH placement.
+erasure-code data plane, batched CRUSH placement and the OSD's write and
+read batchers.
 
     python3 chip_smoke.py            (from the repo root; needs one CUDA card)
 
@@ -24,6 +25,18 @@ after host 17 goes out (minimal movement, no out OSD), an RS(8,4) pool's
 indep placement, a balancer weight-set, a 16-rack map with a
 multi-choose rule, and crushtool --test on the card against the CPU.
 Every placement is checked against the CPU mapper and the scalar mapper.
+
+The OSD path (phases 18-21), RS(8,4) cauchy_good with 256 client
+threads on 1 MiB objects as [8, 131072] host stripes: the write batcher
+at the option table's defaults with the device pool on and off, one
+256-stripe burst in one fused flush (with the flush's stages timed
+apart: the pack into pinned staging, the commit to the card, K1, the
+fetch), an oversize flush split into device batches through
+stream_encode, and the read batcher's degraded read with shards
+{1, 4, 9, 11} lost through an in-memory shard store.  Every parity and
+read is checked byte for byte, K1's launches must equal the device
+batches and decode groups the batchers report, and no op may run
+inline.
 
 For each path the launch counters are set to 0 just before it and read
 just after, and every kernel of the path must have launched.  K3 is
@@ -475,6 +488,287 @@ def crush_slice(torch, dev, card: str, smi: str) -> list[dict]:
     return entries
 
 
+# ---- phases 18-21: the OSD's write and read batchers ----
+
+
+class ShardStore:
+    """The read batcher's I/O adapter (the rb_* protocol of
+    osd/read_batcher.py) over shards held in memory: OSD j holds shard j
+    of every object, OSD 0 is local, the others answer multi-reads in the
+    wire's reply shape (base64 payloads), and the OSDs in `down` are out."""
+
+    def __init__(self, pack, down=()):
+        self.pack = pack
+        self.down = set(down)
+        self.shards: dict[tuple[int, str], bytes] = {}  # (osd, oid) -> bytes
+        self._lock = threading.Lock()
+        self._tid = 0
+        self._replies: dict[int, object] = {}
+
+    def rb_local_osd(self):
+        return 0
+
+    def rb_is_up(self, osd):
+        return osd not in self.down
+
+    def rb_epoch(self):
+        return 1
+
+    def rb_reply_timeout(self):
+        return 30.0
+
+    def rb_read_local(self, pgid, shard, oid, off, ln):
+        b = self.shards.get((0, oid))
+        return None if b is None else (b, 1, len(b))
+
+    def rb_send_multiread(self, osd, pgid, shard, reads, epoch):
+        rows = []
+        for oid, _off, _ln in reads:
+            b = self.shards.get((osd, oid))
+            rows.append([-2, None, None, None] if b is None else [0, self.pack(b), len(b), 1])
+        with self._lock:
+            self._tid += 1
+            self._replies[self._tid] = type("Reply", (), {"results": rows})
+            return self._tid
+
+    def rb_wait_multireads(self, tids, deadline):
+        with self._lock:
+            return {t: self._replies.pop(t) for t in tids if t in self._replies}
+
+
+def run_clients(n: int, op) -> tuple[list[float], float]:
+    """`op(i)` on n client threads at once: per-op latencies and the wall
+    time, in seconds.  Raises the first client's error."""
+    lat, errs = [0.0] * n, []
+
+    def go(i: int) -> None:
+        t0 = time.perf_counter()
+        try:
+            op(i)
+        except Exception as e:  # raised below, after every client joined
+            errs.append(e)
+        lat[i] = time.perf_counter() - t0
+
+    ts = [threading.Thread(target=go, args=(i,)) for i in range(n)]
+    t0 = time.perf_counter()
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout=300)
+    wall = time.perf_counter() - t0
+    check(not any(t.is_alive() for t in ts), "a client thread hung")
+    if errs:
+        raise errs[0]
+    return lat, wall
+
+
+def pcts(lat: list[float]) -> str:
+    return (f"p50 {np.percentile(lat, 50) * 1e3:.2f} ms, "
+            f"p99 {np.percentile(lat, 99) * 1e3:.2f} ms")
+
+
+def osd_slice(torch, dev, card: str, smi: str, rs84, stripes, objects, si) -> list[dict]:
+    """Phases 18-21: RS(8,4) cauchy_good through the OSD's batchers, 256
+    client threads, 1 MiB objects as [8, 131072] stripes."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ceph_tpu_torch.common.context import CephContext
+    from ceph_tpu_torch.common.failpoint import registry
+    from ceph_tpu_torch.common.kernel_telemetry import TELEMETRY
+    from ceph_tpu_torch.gf.reference_codec import encode_chunks as ref_encode
+    from ceph_tpu_torch.ops import gf_kernels
+    from ceph_tpu_torch.ops.bitplane import TABLES
+    from ceph_tpu_torch.ops.device_pool import POOL
+    from ceph_tpu_torch.ops.gf_kernels import apply_matrix_plain
+    from ceph_tpu_torch.osd.messages import pack_data
+    from ceph_tpu_torch.osd.read_batcher import ReadBatcher, ReadReq
+    from ceph_tpu_torch.osd.write_batcher import WriteBatcher
+
+    mat, key = rs84.coding, rs84.bitplane.coding_digest
+    xs = list(torch.stack(stripes).cpu().numpy())  # the clients' host stripes
+    S = xs[0].shape[1]
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(8) as ex:
+        want = list(ex.map(lambda x: ref_encode(mat, x), xs))
+    log(f"[18 setup] numpy reference parity of {OBJECTS} stripes: "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    def k1() -> int:
+        return gf_kernels.LAUNCHES["gf_apply_k1"]
+
+    def same(outs, what: str) -> None:
+        for i, (got, ref) in enumerate(zip(outs, want)):
+            check(np.array_equal(got, ref), f"{what}: parity of stripe {i} differs "
+                  f"from the numpy reference codec")
+
+    # ---- the OSD path: counts set to 0 here, read after phase 21 ----
+    gf_kernels.reset_launch_counts()
+
+    # 18. the write batcher at the option table's defaults, pool on and off
+    parity = None
+    for label, overrides in (("pool on", {}), ("pool off", {"ec_device_pool": False})):
+        wb = WriteBatcher(CephContext("osd.0", overrides=overrides), entity="osd.0")
+        wb.start()
+        out = [None] * OBJECTS
+        k0 = k1()
+        try:
+            lat, wall = run_clients(
+                OBJECTS, lambda i: out.__setitem__(i, wb.encode_chunks(mat, xs[i], key)))
+        finally:
+            wb.stop()
+        st = wb.stats()
+        same(out, f"phase 18 ({label})")
+        check(st["inline"] == 0, f"phase 18 ({label}): {st['inline']} ops encoded inline")
+        check(k1() - k0 == st["device_batches"] > 0,
+              f"phase 18 ({label}): {k1() - k0} K1 launches for {st['device_batches']} "
+              f"device batches")
+        parity = parity or out
+        log(f"[18 write batcher, {label}] {OBJECTS} clients x 1 MiB: byte-equal, "
+            f"{st['flushes']} flushes, {k1() - k0} K1 launches = device batches "
+            f"({st['device_batches'] - st['flushes']} from oversize splits), inline 0; "
+            f"per op {pcts(lat)}; wall {wall * 1e3:.1f} ms, "
+            f"{OBJECTS * OBJECT_BYTES / wall / 2**30:.2f} GiB/s encoded; card {card}, {smi}")
+
+    # 19. one 256-stripe burst in one fused flush
+    wb = WriteBatcher(CephContext("osd.0", overrides={
+        "ec_batch_window_ms": 10_000.0, "ec_batch_max_stripes": 10_000,
+        "ec_batch_max_bytes": 1 << 30}), entity="osd.0")
+    wb.start()
+    try:
+        tickets = [wb.encode_submit(mat, x, key) for x in xs]
+        check(wb.queue_depth() == OBJECTS, f"phase 19: {wb.queue_depth()} stripes queued")
+        d0, k0 = TELEMETRY.dump(), k1()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        wb.flush_now()
+        out = [wb.encode_wait(t) for t in tickets]
+        flush_s = time.perf_counter() - t0
+    finally:
+        wb.stop()
+    d1, st = TELEMETRY.dump(), wb.stats()
+    same(out, "phase 19")
+    check((st["flushes"], st["device_batches"], k1() - k0, st["inline"]) == (1, 1, 1, 0),
+          f"phase 19: one flush in one launch, got {st} and {k1() - k0} launches")
+    flusher_s = d1["ec_batch_flush"]["exec_seconds"] - d0["ec_batch_flush"]["exec_seconds"]
+    commit_s = d1["encode_wait"]["exec_seconds"] - d0.get("encode_wait", {}).get(
+        "exec_seconds", 0.0)
+    log(f"[19 burst] {OBJECTS} stripes in 1 flush, 1 K1 launch, byte-equal: flush_now to "
+        f"the last commit {flush_s * 1e3:.1f} ms (the flusher {flusher_s * 1e3:.1f} ms, the "
+        f"commit fetch {commit_s * 1e3:.1f} ms)")
+
+    # 20. an oversize flush split through stream_encode: the first flush is
+    # held, 96 stripes pile up behind it and flush as one group over the
+    # byte cap of 32 stripes (32 MiB), in 3 device batches
+    split = 96
+    registry().set("osd.write_batcher.flush", "times(1,delay(0.5))")
+    wb = WriteBatcher(CephContext("osd.0", overrides={
+        "ec_batch_window_ms": 50.0, "ec_batch_max_bytes": 32 * xs[0].nbytes}),
+        entity="osd.0")
+    wb.start()
+    h0, k0 = POOL.stats()["hits"], k1()
+    first = {}
+    try:
+        t = threading.Thread(target=lambda: first.setdefault(0, wb.encode_chunks(mat, xs[0], key)))
+        t.start()
+        time.sleep(0.2)  # stripe 0 is in the delayed flush; the rest pile up
+        tickets = [wb.encode_submit(mat, x, key) for x in xs[1:split + 1]]
+        rest = [wb.encode_wait(p) for p in tickets]
+        t.join(timeout=60)
+    finally:
+        wb.stop()
+        registry().clear()
+    st = wb.stats()
+    for i, got in enumerate([first[0]] + rest):
+        check(np.array_equal(got, want[i]), f"phase 20: parity of stripe {i} differs")
+    batches = 1 + split // 32
+    check((st["flushes"], st["device_batches"], k1() - k0) == (2, batches, batches),
+          f"phase 20: want 2 flushes and {batches} launches, got {st}, {k1() - k0}")
+    hits = POOL.stats()["hits"] - h0
+    check(hits > 0, "phase 20: the pool had no hits")
+    log(f"[20 oversize] 1 + {split} stripes, device batches of 32: {st['flushes']} flushes, "
+        f"{k1() - k0} K1 launches = device batches, {hits} pool hits, byte-equal")
+
+    # 21. the read batcher: degraded read of the 256 objects, shards 1, 4, 9, 11 lost
+    lost = (1, 4, 9, 11)
+    avail = [j for j in range(12) if j not in lost]
+    store = ShardStore(pack_data, down=lost)
+    for o in range(OBJECTS):
+        full = np.vstack([xs[o], parity[o]])
+        for j in avail:
+            store.shards[(j, f"obj{o}")] = full[j].tobytes()
+    dm, dm_key = rs84.bitplane._decode_entry(tuple(avail))
+    rb = ReadBatcher(CephContext("osd.0"), io=store, entity="osd.0")
+    rb.start()
+    got = [None] * OBJECTS
+
+    def read(o: int) -> None:
+        res = rb.gather("1.0", list(range(12)), [ReadReq(j, f"obj{o}") for j in avail],
+                        est_bytes=8 * S)
+        check(all(res[i] is not None for i in range(8)), f"object {o}: a shard is missing")
+        stack = np.stack([np.frombuffer(res[i][0], dtype=np.uint8) for i in range(8)])
+        got[o] = rb.decode(dm, stack, dm_key)
+
+    k0 = k1()
+    try:
+        lat, wall = run_clients(OBJECTS, read)
+    finally:
+        rb.stop()
+    st = rb.stats()
+    host_objects = objects.cpu()
+    for o in range(OBJECTS):
+        back = si.unshard(torch.from_numpy(np.ascontiguousarray(got[o])), OBJECT_BYTES)
+        check(torch.equal(back, host_objects[o]), f"phase 21: object {o} reads back wrong")
+    check(st["inline"] == 0, f"phase 21: {st['inline']} ops ran inline")
+    check(k1() - k0 == st["decode_groups"] > 0,
+          f"phase 21: {k1() - k0} K1 launches for {st['decode_groups']} decode groups")
+    log(f"[21 read batcher] {OBJECTS} degraded reads of 1 MiB, shards {lost} lost: "
+        f"byte-equal, {st['flushes']} flushes, {st['fanouts']} sub-op fan-outs, "
+        f"{st['decode_groups']} decode groups = K1 launches; per op {pcts(lat)}; wall "
+        f"{wall * 1e3:.1f} ms, {OBJECTS * OBJECT_BYTES / wall / 2**30:.2f} GiB/s read")
+
+    torch.cuda.synchronize()
+    launches = k1()
+    log(f"[OSD path] launches {dict(gf_kernels.LAUNCHES)}; pool {POOL.stats()}")
+    check(launches > 0, "K1 was not launched on the OSD path")
+
+    # K1 at phase 19's launch (one packed [8, 256 x 131072] segment) and the
+    # stages of that flush around it: pack, commit, K1, fetch
+    pinned = torch.empty((8, OBJECTS * S), dtype=torch.uint8, pin_memory=True)
+    pack_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        np.concatenate(xs, axis=1, out=pinned.numpy())
+        pack_ms.append((time.perf_counter() - t0) * 1e3)
+    packed = torch.empty((8, OBJECTS * S), dtype=torch.uint8, device=dev)
+    h2d_ms = time_ms(torch, lambda: packed.copy_(pinned, non_blocking=True), iters=5, warmup=1)
+    tables = TABLES.get(mat, dev, key)
+    plain = apply_matrix_plain(mat, packed)
+    res = gf_kernels.gf_apply(mat, [packed], tables=tables)
+    torch.cuda.synchronize()
+    err = max_err(torch, res, plain)
+    check(err == 0, "K1 on the packed flush disagrees with the plain version")
+    ms = time_ms(torch, gf_kernels.prepare(mat, [packed], tables), iters=20)
+    plain_ms = time_ms(torch, lambda: apply_matrix_plain(mat, packed), iters=3, warmup=1)
+    landing = torch.empty(res.shape, dtype=torch.uint8, pin_memory=True)
+    d2h_ms = time_ms(torch, lambda: landing.copy_(res, non_blocking=True), iters=5, warmup=1)
+    L = OBJECTS * S
+    bound = bound_ms(4, 8, L)
+    log(f"[19 breakdown] pack into pinned staging {np.median(pack_ms):.2f} ms (host), "
+        f"commit 256 MiB {h2d_ms:.2f} ms, K1 {ms:.4f} ms (bound {bound:.4f} ms by bytes, "
+        f"plain {plain_ms:.2f} ms), fetch 128 MiB {d2h_ms:.2f} ms; the batcher's flush "
+        f"{flush_s * 1e3:.1f} ms")
+    return [{
+        "name": "gf_apply_k1", "route": "cuda", "source": "ceph_tpu_torch/csrc/gf_apply.cu",
+        "replaces": "ceph_tpu/ops/pallas_gf.py:184", "launches": launches,
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+        "bound_by": "bytes", "library_ms": None,
+        "shape": "RS(8,4) write-batcher flush (phase 19): one packed [8, 33554432] segment",
+        "flush_ms": flush_s * 1e3, "flusher_ms": flusher_s * 1e3,
+        "commit_wait_ms": commit_s * 1e3, "pack_ms": float(np.median(pack_ms)),
+        "h2d_ms": h2d_ms, "d2h_ms": d2h_ms, "card": card, "nvidia_smi": smi,
+    }]
+
+
 def main() -> int:
     import torch
 
@@ -692,6 +986,7 @@ def main() -> int:
             + (f", tensor-core floor {tc['tc_floor_ms']:.4f} ms" if tc else "")
             + f", wrapper {wrapper_ms:.4f} ms, plain {plain_ms:.3f} ms")
     kernels += crush_slice(torch, dev, card, smi)
+    kernels += osd_slice(torch, dev, card, smi, rs84, stripes, objects, si)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -5,8 +5,11 @@ for K2; K2 at rows around its 8-row tiles, n around its 4-row k-steps
 and 64-row stages, L one short of and one past its 64-column warp
 tiles and 256-column block tiles); K3 (ragged lane counts, bucket
 widths 1 to 128, empty buckets, weight-set positions) and both forms of
-the crush_ln probe over every u; and the batch mapper on the card.
-Marked ``cuda``: each test skips without a card.  On a GPU machine (the
+the crush_ln probe over every u; the batch mapper on the card; the
+device pool's ordering of a released buffer behind the kernel that still
+reads it, stream_encode from pinned staging at ragged batch sizes, and
+the write and read batchers on the card.  Marked ``cuda``: each test
+that needs a card skips without one.  On a GPU machine (the
 JAX package is not needed):
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
@@ -216,3 +219,138 @@ def test_batch_mapper_on_the_card(cuda):
         for x in range(0, 3000, 61):
             exp = w.do_rule(rule, x, nrep, list(weights))
             assert got[x].tolist() == (exp + [ITEM_NONE] * nrep)[:nrep]
+
+
+# ---- the OSD's batchers, the device pool and the stream pipeline ----
+
+
+def test_batchers_without_a_device_run_on_the_card_or_raise():
+    """No ``device``: the batchers run on the card, or raise without one
+    (never on the CPU).  Runs on both kinds of machine."""
+    from ceph_tpu_torch.common.context import CephContext
+    from ceph_tpu_torch.osd.read_batcher import ReadBatcher
+    from ceph_tpu_torch.osd.write_batcher import WriteBatcher
+
+    cct = CephContext("osd.1")
+    for make in (lambda: WriteBatcher(cct), lambda: ReadBatcher(cct, io=None)):
+        if torch.cuda.is_available():
+            assert make()._device.type == "cuda"
+        else:
+            with pytest.raises(RuntimeError, match="CUDA is not available"):
+                make()
+
+
+def test_pool_buffer_released_under_k1_keeps_its_bytes(cuda):
+    """A pooled buffer released while K1 still reads it (K1 queued on a
+    stream held back by a spin kernel) and refilled at once from another
+    stream: the refill waits for K1, whose output is still the apply of
+    the old bytes."""
+    from ceph_tpu_torch.ops.device_pool import DevicePool
+
+    rng = np.random.default_rng(21)
+    mat = cauchy_good_coding_matrix(8, 4).astype(np.uint8)
+    old, new = _rand(rng, (8, 1 << 22)), _rand(rng, (8, 1 << 22))
+    want = apply_matrix_plain(mat, torch.from_numpy(old).to(cuda))
+    pool = DevicePool(max_bytes=1 << 30)
+    x = pool.put(old, cuda)
+    torch.cuda.synchronize()
+    held, other = torch.cuda.Stream(), torch.cuda.Stream()
+    with torch.cuda.stream(held):
+        torch.cuda._sleep(200_000_000)  # ~0.1 s: K1 below waits behind it
+        out = gf_apply(mat, [x])
+        pool.release(x)  # its last use is K1 on `held`
+    with torch.cuda.stream(other):
+        y = pool.put(new, cuda)  # the same buffer, refilled on `other`
+    assert y.data_ptr() == x.data_ptr() and pool.stats()["donations"] == 1
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+    np.testing.assert_array_equal(y.cpu().numpy(), new)
+
+
+@pytest.mark.parametrize("lengths", [(1, 4097, 131072, 3, 65541), (4096,) * 5, (7,)])
+def test_stream_encode_pinned_ragged(cuda, lengths, monkeypatch):
+    """stream_encode on the card from pinned staging: one K1 launch per
+    batch, each parity equal to the numpy referee, at ragged batch sizes
+    and with a batch given as a list of stripes."""
+    from ceph_tpu_torch.ops.pipeline import stream_encode
+
+    staged = []
+    empty = torch.empty
+
+    def spy(*shape, pin_memory=False, **kw):
+        staged.append(pin_memory)
+        return empty(*shape, pin_memory=pin_memory, **kw)
+
+    monkeypatch.setattr(torch, "empty", spy)
+
+    rng = np.random.default_rng(sum(lengths))
+    mat = cauchy_good_coding_matrix(8, 4).astype(np.uint8)
+    batches = [_rand(rng, (8, L)) for L in lengths]
+    parts = [_rand(rng, (8, 100)), _rand(rng, (8, 33))]
+    before = gf_kernels.LAUNCHES["gf_apply_k1"]
+    outs = stream_encode(mat, iter(batches + [parts]))
+    assert gf_kernels.LAUNCHES["gf_apply_k1"] == before + len(batches) + 1
+    for x, got in zip(batches + [np.concatenate(parts, axis=1)], outs):
+        np.testing.assert_array_equal(got, apply_ref(mat, x))
+    assert staged.count(True) == len(batches) + 1  # one pinned staging per batch
+
+
+@pytest.mark.parametrize("pool", [True, False], ids=["pool", "pool_off"])
+def test_batchers_on_the_card(cuda, pool):
+    """The write batcher's fused flush and the read batcher's grouped
+    decode on the card: one K1 launch per flush group, bytes equal to the
+    numpy referee, nothing inline."""
+    import threading
+
+    from ceph_tpu_torch.common.context import CephContext
+    from ceph_tpu_torch.gf.matrix import decode_matrix_for, systematic_generator
+    from ceph_tpu_torch.osd.read_batcher import ReadBatcher
+    from ceph_tpu_torch.osd.write_batcher import WriteBatcher
+
+    rng = np.random.default_rng(22)
+    mat = cauchy_good_coding_matrix(8, 4).astype(np.uint8)
+    xs = [_rand(rng, (8, 4096 + 512 * (i % 3))) for i in range(24)]
+    cct = CephContext("osd.1", overrides={
+        "ec_batch_window_ms": 10_000.0, "ec_batch_max_stripes": 24,
+        "osd_read_batch_window_ms": 10_000.0, "osd_read_batch_max_ops": 24,
+        "ec_device_pool": pool})
+    wb = WriteBatcher(cct)
+    wb.start()
+    before = gf_kernels.LAUNCHES["gf_apply_k1"]
+    try:
+        outs = [None] * len(xs)
+        ts = [threading.Thread(target=lambda i=i: outs.__setitem__(
+            i, wb.encode_chunks(mat, xs[i]))) for i in range(len(xs))]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(timeout=60)
+    finally:
+        wb.stop()
+    st = wb.stats()
+    assert (st["flushes"], st["inline"], st["device_batches"]) == (1, 0, 3)
+    assert gf_kernels.LAUNCHES["gf_apply_k1"] == before + 3
+    for x, got in zip(xs, outs):
+        np.testing.assert_array_equal(got, apply_ref(mat, x))
+
+    avail = [0, 2, 3, 5, 6, 7, 8, 10]  # shards 1, 4, 9, 11 lost
+    dm = decode_matrix_for(systematic_generator(mat), 8, avail).astype(np.uint8)
+    stacks = [np.vstack([x, apply_ref(mat, x)])[avail] for x in xs]
+    rb = ReadBatcher(cct, io=None)
+    rb.start()
+    before = gf_kernels.LAUNCHES["gf_apply_k1"]
+    try:
+        got = [None] * len(xs)
+        ts = [threading.Thread(target=lambda i=i: got.__setitem__(
+            i, rb.decode(dm, stacks[i]))) for i in range(len(xs))]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(timeout=60)
+    finally:
+        rb.stop()
+    st = rb.stats()
+    assert (st["flushes"], st["inline"], st["decode_groups"]) == (1, 0, 1)
+    assert gf_kernels.LAUNCHES["gf_apply_k1"] == before + 1
+    for x, out in zip(xs, got):
+        np.testing.assert_array_equal(out, x)
