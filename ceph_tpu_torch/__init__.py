@@ -15,7 +15,12 @@ mappers, CrushWrapper), tools/crushtool, and the OSD's data plane: osd/
 (the write and read batchers, the read cache) on ops/device_pool.py,
 ops/pipeline.py and the runtime in common/ (config and options,
 context, failpoints, throttle, perf counters, tracer, kernel
-telemetry).
+telemetry); the cluster substrate (common/buffer and crc32c, the
+native_oracle loader, auth/, compressor/, store/, msg/ and the wire
+messages of mon/, mgr/ and osd/, the PG log and past intervals); and
+the OSDMap (osd/osdmap.py, whose map_pool maps a pool on the card
+through K3), the placement core, the upmap balancer and
+tools/osdmaptool.
 """
 from .common.device import resolve_device
 

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main paths once on one GPU: the
-erasure-code data plane, batched CRUSH placement and the OSD's write and
-read batchers.
+erasure-code data plane, batched CRUSH placement, the OSD's write and
+read batchers, and the OSDMap's pool-wide PG mapping.
 
     python3 chip_smoke.py            (from the repo root; needs one CUDA card)
 
@@ -38,11 +38,25 @@ read is checked byte for byte, K1's launches must equal the device
 batches and decode groups the batchers report, and no op may run
 inline.
 
+The OSDMap path (phases 22-24), on the same 1024 OSDs: an OSDMap with a
+size-3 replicated pool (rule 0) and an RS(8,4) size-12 pool (rule 1,
+chooseleaf indep), their pg_num Ceph's mon_target_pg_per_osd over the
+pool's size rounded down to a power of two (32768 and 8192), mapped
+through OSDMap.map_pool with no device (cuda) and held equal to
+device="cpu" on whole pools and to the scalar pg_to_up_acting_osds on
+spread PGs, with one pass timed by stage and the card's idle share
+under torch.profiler; then pg_upmap_items on nine PGs and primary
+affinity 0 on four hosts (only the upmapped PGs move), then host 17
+out (only PGs that held it move, none keeps an out OSD); then
+osdmaptool --test-map-pgs --upmap on a map file on cuda and with
+--device cpu, which must print the same text.
+
 For each path the launch counters are set to 0 just before it and read
 just after, and every kernel of the path must have launched.  K3 is
 timed over the xs one pass of the mapper takes, and its bound counts the
 INT32-pipe instructions of its slot loop in the SASS of the library the
-run built (cuobjdump, beside nvcc).  The last
+run built (cuobjdump, beside nvcc); it is timed again at map_pool's
+launch shapes, the root and host draws over each pool's seeds.  The last
 lines are the card, one ``kernels`` JSON object (each kernel's time
 beside its bound and its plain version's time; K2's also beside its
 int8 tensor-core floor, at the CLAY(8,4,d=11) repair and at
@@ -89,6 +103,7 @@ CRUSH_LANES = 1 << 18
 PLACEMENT_XS = 1 << 20
 CPU_CHECK_XS = 1 << 16
 SCALAR_CHECK_XS = 512
+SCALAR_CHECK_PGS = 1024
 PROBE_ELEMENTS = 1 << 25
 
 
@@ -769,6 +784,287 @@ def osd_slice(torch, dev, card: str, smi: str, rs84, stripes, objects, si) -> li
     }]
 
 
+# ---- phases 22-24: the OSDMap's pool-wide PG mapping ----
+
+
+def pow2_floor(n: int) -> int:
+    return 1 << (n.bit_length() - 1)
+
+
+def median_s(torch, fn, n: int = 5) -> float:
+    """Median wall seconds of `fn` with the card synchronised after it."""
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times))
+
+
+def map_pool_stages(torch, m, pid: int) -> dict:
+    """One OSDMap.map_pool pass of pool `pid`, timed whole and by stage
+    (medians of 5): the placement-seed hash, CrushWrapper.do_rule_batch to
+    a synchronised card, the copy of its result to the host, and the rest
+    (the upmap, up-filter and primary post-passes); then one pass under
+    torch.profiler for the device's busy time (its kernels' and copies'
+    time, one stream) and the calls that wait for the card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    pool = m.pools[pid]
+    ps = np.arange(pool.pg_num, dtype=np.uint32)
+    xs = pool.raw_pg_to_pps_batch(ps).astype(np.int32)
+
+    def rule():
+        return m.crush.do_rule_batch(pool.crush_rule, xs, pool.size, m.osd_weight,
+                                     device=m.device)
+
+    raw = rule()
+    st = {"pps": median_s(torch, lambda: pool.raw_pg_to_pps_batch(ps)),
+          "do_rule_batch": median_s(torch, rule),
+          "to_host": median_s(torch, lambda: raw.cpu().numpy()),
+          "map_pool": median_s(torch, lambda: m.map_pool(pid))}
+    st["post"] = st["map_pool"] - st["pps"] - st["do_rule_batch"] - st["to_host"]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        m.map_pool(pid)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    busy = sum(getattr(e, "self_device_time_total", 0.0) for e in events) / 1e6
+    st["idle_share"] = 1 - busy / wall
+    st["syncs"] = sum(e.count for e in events if e.key in (
+        "cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaMemcpyAsync"))
+    return st
+
+
+def osdmap_slice(torch, dev, card: str, smi: str) -> list[dict]:
+    """Phases 22-24: OSDMap.map_pool over two pools on the 1024-OSD map,
+    then osdmaptool (see the docstring)."""
+    from ceph_tpu_torch.common.context import CephContext
+    from ceph_tpu_torch.crush import ITEM_NONE, CrushWrapper, build_hierarchical_map
+    from ceph_tpu_torch.osd import PG_POOL_ERASURE, OSDMap, calc_pg_upmaps
+    from ceph_tpu_torch.ops import crush_kernels as ck
+    from ceph_tpu_torch.tools import osdmaptool
+
+    int32 = int32_counts(ck.LIBRARY.path())
+    n_osd = HOSTS * OSDS_PER_HOST
+    conf = CephContext("mon.a").conf
+    target = conf.get("mon_target_pg_per_osd")
+    # pool id -> (pg_num, size, rule, type): Ceph's target PGs per OSD over
+    # the pool's size, rounded down to a power of two
+    pools = {
+        1: (pow2_floor(n_osd * target // 3), 3, 0, None),
+        2: (pow2_floor(n_osd * target // 12), 12, 1, PG_POOL_ERASURE),
+    }
+    shards = sum(pg * size for pg, size, _, _ in pools.values())
+    check(shards / n_osd <= conf.get("mon_max_pg_per_osd"),
+          f"{shards / n_osd} PG shards per OSD, over mon_max_pg_per_osd")
+    crush = CrushWrapper(build_hierarchical_map(HOSTS, OSDS_PER_HOST))
+
+    def make(device=None) -> OSDMap:
+        m = OSDMap(copy.deepcopy(crush), device=device)
+        for pid, (pg_num, size, rule, kind) in pools.items():
+            m.create_pool(pid, pg_num=pg_num, size=size, crush_rule=rule,
+                          **({"type": kind} if kind else {}))
+        return m
+
+    def k3() -> int:
+        return ck.LAUNCHES["crush_straw2_k3"]
+
+    def map_all(m: OSDMap) -> tuple[dict, dict, float]:
+        """Every pool of `m` mapped once: results, K3 launches per pool,
+        wall seconds (card synchronised)."""
+        got, per_pool = {}, {}
+        t0 = time.perf_counter()
+        for pid in pools:
+            k0 = k3()
+            got[pid] = m.map_pool(pid)
+            per_pool[pid] = k3() - k0
+        torch.cuda.synchronize()
+        return got, per_pool, time.perf_counter() - t0
+
+    def against(m: OSDMap, cpu: OSDMap, got: dict, what: str, n_scalar: int) -> None:
+        """`got` (m's map_pool) equals the CPU map's map_pool on whole
+        pools and the scalar pg_to_up_acting_osds on `n_scalar` PGs of
+        each."""
+        for pid, (up, prim) in got.items():
+            cup, cprim = cpu.map_pool(pid)
+            check(np.array_equal(up, cup) and np.array_equal(prim, cprim),
+                  f"{what}: pool {pid} differs from device='cpu'")
+            pg_num, size = pools[pid][:2]
+            for ps in np.linspace(0, pg_num - 1, n_scalar).astype(np.int64):
+                u, p, _, _ = m.pg_to_up_acting_osds(pid, int(ps))
+                want = u if pools[pid][3] else padded(u, size, ITEM_NONE)
+                check(up[ps].tolist() == want and int(prim[ps]) == p,
+                      f"{what}: pool {pid} pg {ps} differs from the scalar mapping")
+
+    # ---- the OSDMap path: counts set to 0 here, read after phase 24 ----
+    ck.reset_launch_counts()
+    per_phase = {}
+
+    # 22. map_pool of both pools on the card (no device: cuda)
+    k0 = k3()
+    m = make()
+    cpu = make("cpu")
+    first, per_pool, cold_s = map_all(m)
+    check(m.device.type == "cuda", f"OSDMap mapped on {m.device}, want cuda")
+    base, _, warm_s = map_all(m)
+    for pid in pools:
+        check(all(np.array_equal(a, b) for a, b in zip(first[pid], base[pid])),
+              f"two map_pool calls of pool {pid} differ")
+    t0 = time.perf_counter()
+    against(m, cpu, base, "phase 22", SCALAR_CHECK_PGS)
+    check_s = time.perf_counter() - t0
+    for pid, (up, _) in base.items():
+        pg_num, size, _, kind = pools[pid]
+        check(up.shape == (pg_num, size), f"pool {pid}: up shape {up.shape}")
+        check(bool((up != ITEM_NONE).all()), f"pool {pid}: a PG has a hole with every OSD in")
+    per_phase[22] = k3() - k0
+    for pid in pools:
+        st = map_pool_stages(torch, m, pid)
+        log(f"[22 map_pool] pool {pid} pass {st['map_pool'] * 1e3:.3f} ms (median of 5) = "
+            f"pps hash {st['pps'] * 1e3:.3f} + do_rule_batch {st['do_rule_batch'] * 1e3:.3f} + "
+            f"to host {st['to_host'] * 1e3:.3f} + post-passes {st['post'] * 1e3:.3f} ms; "
+            f"under torch.profiler the card idles {st['idle_share']:.4f} of a pass, "
+            f"{st['syncs']} sync and copy calls")
+    pool_txt = ", ".join(f"pool {pid} pg_num {pg} size {sz}" for pid, (pg, sz, _, _)
+                         in pools.items())
+    log(f"[22 map_pool] {pool_txt} over {n_osd} OSDs ({shards / n_osd:.0f} PG shards per "
+        f"OSD): cuda {warm_s * 1e3:.1f} ms for both (first call {cold_s * 1e3:.1f} ms), "
+        f"K3 launches per pass {per_pool}; equal to device='cpu' on whole pools and the "
+        f"scalar mapping on {SCALAR_CHECK_PGS} PGs of each ({check_s:.1f} s); card {card}, "
+        f"{smi}")
+
+    # 23. pg_upmap_items and primary affinity 0, then host OUT_HOST out
+    k0 = k3()
+    out_osds = set(range(OUT_HOST * OSDS_PER_HOST, (OUT_HOST + 1) * OSDS_PER_HOST))
+    low_aff = set(range(0, 4 * OSDS_PER_HOST))  # hosts 0-3
+    items = {}
+    for mm in (m, cpu):
+        for o in low_aff:
+            mm.set_primary_affinity(o, 0.0)
+    up1 = base[1][0]
+    # PGs away from host OUT_HOST: eight move their first replica to an OSD
+    # of another host, a ninth to an OSD of host OUT_HOST, which goes out below
+    away = [ps for ps in range(64) if not out_osds & set(up1[ps].tolist())][:9]
+    for ps in away[:8]:
+        hosts = {o // OSDS_PER_HOST for o in up1[ps].tolist()}
+        to = next(o for o in range(n_osd) if o // OSDS_PER_HOST not in hosts | {OUT_HOST})
+        items[(1, ps)] = [(int(up1[ps][0]), to)]
+    items[(1, away[8])] = [(int(up1[away[8]][0]), min(out_osds))]
+    for mm in (m, cpu):
+        mm.pg_upmap_items.update(items)
+    t0 = time.perf_counter()
+    mid, _, mid_s = map_all(m)
+    for pid, (up, prim) in mid.items():
+        bup, bprim = base[pid]
+        moved = ~(up == bup).all(1)
+        check(set(np.nonzero(moved)[0].tolist()) == {ps for p, ps in items if p == pid},
+              f"pool {pid}: the upmap items moved other PGs")
+        turned = prim != bprim
+        check(all(int(p) in low_aff for p in bprim[turned & ~moved]),
+              f"pool {pid}: a primary moved off an OSD with full affinity")
+        check(not any(int(p) in low_aff for p in prim[turned & ~moved]),
+              f"pool {pid}: a primary moved onto an OSD with affinity 0")
+    for mm in (m, cpu):
+        for o in out_osds:
+            mm.mark_out(o)
+    after, _, out_s = map_all(m)
+    against(m, cpu, after, "phase 23", SCALAR_CHECK_PGS // 4)
+    n_moved = {}
+    for pid, (up, prim) in after.items():
+        mup, mprim = mid[pid]
+        check(not bool(np.isin(up, list(out_osds)).any()), f"pool {pid}: an up set holds an out OSD")
+        held = np.isin(mup, list(out_osds)).any(1)
+        moved = ~(up == mup).all(1) | (prim != mprim)
+        check(not bool((moved & ~held).any()), f"pool {pid}: a PG without host {OUT_HOST} moved")
+        check(not bool(((up == ITEM_NONE).any(1)).any()), f"pool {pid}: a PG lost a shard")
+        n_moved[pid] = f"{int(moved.sum())}/{len(up)}"
+    per_phase[23] = k3() - k0
+    log(f"[23 remap] {len(items)} pg_upmap_items on pool 1 and affinity 0 on "
+        f"{len(low_aff)} OSDs: {mid_s * 1e3:.1f} ms, only the upmapped PGs moved; host "
+        f"{OUT_HOST} out: {out_s * 1e3:.1f} ms, PGs moved {n_moved}, all of them held host "
+        f"{OUT_HOST}, none holds an out OSD; equal to device='cpu' and the scalar mapping "
+        f"on {SCALAR_CHECK_PGS // 4} PGs of each; "
+        f"card {card}, {smi}")
+
+    # 24. osdmaptool --test-map-pgs and --upmap on a map file, cuda and cpu
+    k0 = k3()
+    fresh = make()
+    mappings = {pid: fresh.map_pool(pid) for pid in pools}
+    t0 = time.perf_counter()
+    n_upmaps = len(calc_pg_upmaps(fresh, max_deviation=1, max_iterations=100,
+                                  mappings=mappings))
+    upmap_s = time.perf_counter() - t0
+    workdir = Path(__file__).resolve().parent / "build" / "chip_smoke"
+    workdir.mkdir(parents=True, exist_ok=True)
+    blob = json.dumps(make().to_json())
+    texts, secs = [], []
+    for extra in ([], ["--device", "cpu"]):
+        mapfile = workdir / f"osdmap_{extra[-1] if extra else 'cuda'}.json"
+        mapfile.write_text(blob)  # --upmap writes the balanced map back
+        argv = [str(mapfile), "--test-map-pgs", "--upmap", "-", "--upmap-deviation", "1",
+                "--upmap-max", "100", *extra]
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        check(osdmaptool.main(argv, out=buf) == 0, f"osdmaptool {extra} failed")
+        secs.append(time.perf_counter() - t0)
+        texts.append(buf.getvalue())
+    check(texts[0] == texts[1], "osdmaptool differs between cuda and cpu")
+    lines = texts[0].splitlines()
+    check(sum(ln.startswith("osd.") for ln in lines) == n_osd, "a --test-map-pgs row is missing")
+    changes = sum(ln.startswith("ceph osd pg-upmap-items") for ln in lines)
+    check(changes > 0, "--upmap proposed no change")
+    per_phase[24] = k3() - k0
+    log(f"[24 osdmaptool] --test-map-pgs --upmap - --upmap-deviation 1 --upmap-max 100: "
+        f"{len(lines)} lines, {changes} pg-upmap-items commands, "
+        f"{[ln for ln in lines if ln.startswith('# score')][0]}; the same on cuda "
+        f"({secs[0]:.2f} s) and cpu ({secs[1]:.2f} s); calc_pg_upmaps alone over "
+        f"precomputed mappings: {upmap_s:.3f} s on the host, {n_upmaps} changes; card "
+        f"{card}, {smi}")
+
+    torch.cuda.synchronize()
+    launches = dict(ck.LAUNCHES)
+    log(f"[OSDMap path] launches {launches}; crush_straw2_k3 by phase {per_phase}")
+    for phase, count in per_phase.items():
+        check(count > 0, f"phase {phase} mapped without K3")
+
+    # K3 at map_pool's launch shapes: the root and the host draw over each
+    # pool's placement seeds (one pass of the interpreter takes the pool)
+    entries = []
+    cm = crush.compiled(dev)
+    map_bytes = cm.items.numel() * 12 + cm.sizes.numel() * 4
+    for pid, (pg_num, size, rule, _) in pools.items():
+        pps = torch.from_numpy(
+            m.pools[pid].raw_pg_to_pps_batch(np.arange(pg_num)).astype(np.int32)).to(dev)
+        zeros = torch.zeros_like(pps)
+        root_args = (cm.items, cm.weights, cm.sizes, zeros, pps, zeros, zeros)
+        hosts = (-1 - ck.straw2_choose(*root_args)).contiguous()
+        host_args = (cm.items, cm.weights, cm.sizes, hosts, pps, zeros, zeros)
+        for level, args in (("root", root_args), ("host", host_args)):
+            got = ck.straw2_choose(*args)
+            err = max_err(torch, got, ck.straw2_choose_plain(*args))
+            check(err == 0, f"straw2_choose at pool {pid}'s {level} draw differs")
+            slots = int(cm.sizes[args[3].long()].sum())
+            ms = time_ms(torch, lambda: ck.straw2_choose(*args), iters=20)
+            plain_ms = time_ms(torch, lambda: ck.straw2_choose_plain(*args), iters=3, warmup=1)
+            ops_ms = slots * int32["straw2_choose_kernel"] / INT32_OPS_PER_S * 1e3
+            bytes_ms = (16 * pg_num + map_bytes) / HBM_BYTES_PER_S * 1e3
+            entries.append(kernel_entry(
+                "crush_straw2_k3", "ceph_tpu/ops/pallas_crush.py:176",
+                f"OSDMap.map_pool, pool {pid} (pg_num {pg_num}, size {size}, rule {rule}): "
+                f"{pg_num} lanes at the {level} ({slots} slots walked)", err, ms, plain_ms,
+                ops_ms, bytes_ms, None, card, smi, launches_per_pass=per_pool[pid]))
+            log(f"[24 K3] map_pool pool {pid}, {pg_num} lanes at the {level}: {ms:.4f} ms, "
+                f"bound {max(ops_ms, bytes_ms):.4f} ms, plain {plain_ms:.2f} ms, "
+                f"{per_pool[pid]} K3 launches per map_pool")
+    for e in entries:
+        e["launches"] = launches[e["name"]]
+    return entries
+
+
 def main() -> int:
     import torch
 
@@ -987,6 +1283,7 @@ def main() -> int:
             + f", wrapper {wrapper_ms:.4f} ms, plain {plain_ms:.3f} ms")
     kernels += crush_slice(torch, dev, card, smi)
     kernels += osd_slice(torch, dev, card, smi, rs84, stripes, objects, si)
+    kernels += osdmap_slice(torch, dev, card, smi)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -146,3 +146,96 @@ def test_context_admin_commands_without_the_fallback_latch(tmp_path):
     finally:
         cct.shutdown()
         ref.shutdown()
+
+
+# ---- crc32c and the buffer list ----
+
+
+@pytest.mark.parametrize("n", [0, 1, 7, 8, 9, 4096, 65537])
+def test_crc32c_native_python_and_reference_agree(n):
+    """The port's crc32c (its own build of the native library, hardware
+    and table paths) equals its Python fallback and the reference's."""
+    import numpy as np
+
+    from ceph_tpu.common.crc32c import crc32c as ref_crc32c
+    from ceph_tpu_torch import native_oracle
+    from ceph_tpu_torch.common.crc32c import _crc32c_py, crc32c
+
+    data = np.random.default_rng(n).integers(0, 256, n, dtype=np.uint8).tobytes()
+    assert native_oracle.available()
+    for seed in (0xFFFFFFFF, 0, 0x1234ABCD):
+        want = ref_crc32c(data, seed)
+        assert crc32c(data, seed) == want
+        assert native_oracle.crc32c(data, seed) == want
+        assert native_oracle.crc32c(data, seed, _sw=True) == want
+        assert _crc32c_py(data, seed) == want
+    assert _crc32c_py(b"123456789", 0xFFFFFFFF) ^ 0xFFFFFFFF == 0xE3069283
+    half = n // 2
+    assert crc32c(data[half:], seed=crc32c(data[:half])) == crc32c(data)
+
+
+def test_native_oracle_builds_outside_native_and_matches_the_tables():
+    """The port's loader compiles native/'s sources into
+    build/ceph_tpu_torch/ and writes nothing under native/; the oracle's
+    CRUSH_LN_TABLE header holds the port's table."""
+    import re
+    from pathlib import Path
+
+    import numpy as np
+
+    from ceph_tpu_torch import native_oracle
+    from ceph_tpu_torch.crush.ln_table import CRUSH_LN_TABLE
+
+    native = Path(native_oracle.__file__).resolve().parents[1] / "native"
+    before = {p.name: p.stat().st_mtime_ns for p in native.iterdir()}
+    path = native_oracle._library_path()
+    assert path.parent.name == "ceph_tpu_torch" and path.parent.parent.name == "build"
+    assert path.exists() and native_oracle.available()
+    assert {p.name: p.stat().st_mtime_ns for p in native.iterdir()} == before
+    body = (native / "crush_tables.h").read_text()
+    vals = [int(v) for v in re.findall(r"-?\d+", body[body.index("{") + 1:body.rindex("}")])]
+    np.testing.assert_array_equal(np.asarray(vals, dtype=np.int64), CRUSH_LN_TABLE)
+    # the GF oracle answers as the reference's does
+    from ceph_tpu import native_oracle as ref_oracle
+
+    np.testing.assert_array_equal(native_oracle.cauchy_good(8, 4), ref_oracle.cauchy_good(8, 4))
+
+
+def test_buffer_list_matches_reference():
+    """The same appends, substr, claim, alignment and typed encodes give
+    the same bytes and crc in both packages, and each decodes the other's."""
+    import numpy as np
+
+    from ceph_tpu.common.buffer import BufferList as RefBL
+    from ceph_tpu.common.buffer import BufferListIterator as RefIt
+    from ceph_tpu_torch.common.buffer import BufferList, BufferListIterator
+
+    def build(BL):
+        rng = np.random.default_rng(5)
+        bl = BL(b"abc")
+        bl.append(b"def").append(bytearray(b"gh")).append_zero(3)
+        for i in range(6):
+            bl.append(rng.integers(0, 256, 100 + i, dtype=np.uint8).tobytes())
+        other = BL(b"xx")
+        other.claim_append(BL(b"yy"))
+        bl.claim_append(other)
+        bl.append_u8(7).append_u16(300).append_u32(70000).append_u64(1 << 40)
+        bl.append_str("héllo").append_str(b"\x00\xff")
+        sub = bl.substr(2, 300)
+        aligned = BL(b"abcde")
+        aligned.rebuild_aligned(4)
+        return (bytes(bl), len(bl), bl.crc32c(), bl.crc32c(0), bytes(sub), sub.crc32c(),
+                bytes(aligned), aligned.is_contiguous(), len(other))
+
+    got = build(BufferList)
+    assert got == build(RefBL)
+    assert got[7] and got[8] == 0 and got[6] == b"abcde\0\0\0"
+    tail = got[0][-(1 + 2 + 4 + 8 + 4 + 6 + 4 + 2):]
+    for It in (BufferListIterator, RefIt):
+        it = It(tail)
+        assert (it.get_u8(), it.get_u16(), it.get_u32(), it.get_u64()) == (7, 300, 70000, 1 << 40)
+        assert (it.get_str(), it.get_str_bytes(), it.remaining()) == ("héllo", b"\x00\xff", 0)
+        with pytest.raises(EOFError):
+            it.get_u8()
+    with pytest.raises(IndexError):
+        BufferList(b"0123456789").substr(5, 6)

@@ -6,6 +6,8 @@ and 64-row stages, L one short of and one past its 64-column warp
 tiles and 256-column block tiles); K3 (ragged lane counts, bucket
 widths 1 to 128, empty buckets, weight-set positions) and both forms of
 the crush_ln probe over every u; the batch mapper on the card; the
+OSDMap's map_pool against device="cpu" and the scalar mapping (pg_num
+not a power of two, EC pools wider than the hosts); the
 device pool's ordering of a released buffer behind the kernel that still
 reads it, stream_encode from pinned staging at ragged batch sizes, and
 the write and read batchers on the card.  Marked ``cuda``: each test
@@ -219,6 +221,68 @@ def test_batch_mapper_on_the_card(cuda):
         for x in range(0, 3000, 61):
             exp = w.do_rule(rule, x, nrep, list(weights))
             assert got[x].tolist() == (exp + [ITEM_NONE] * nrep)[:nrep]
+
+
+
+# ---- the OSDMap's pool-wide mapping ----
+
+
+def _osdmap_pair(pg_num, size, erasure, device):
+    """An OSDMap on 8 hosts x 4 OSDs with one pool, an OSD out, one down,
+    an upmap, upmap items, a pg_temp and primary affinity below 1."""
+    from ceph_tpu_torch.crush import CrushWrapper, build_hierarchical_map
+    from ceph_tpu_torch.osd import PG_POOL_ERASURE, OSDMap
+
+    m = OSDMap(CrushWrapper(build_hierarchical_map(8, 4)), device=device)
+    m.create_pool(1, pg_num=pg_num, size=size, crush_rule=1 if erasure else 0,
+                  **({"type": PG_POOL_ERASURE} if erasure else {}))
+    m.mark_out(5)
+    m.mark_down(9)
+    for o in (0, 13, 22):
+        m.set_primary_affinity(o, 0.25)
+    m.pg_upmap[(1, 0)] = list(range(size)) if size <= 32 else []
+    m.pg_upmap_items[(1, pg_num - 1)] = [(0, 31), (4, 30)]
+    m.pg_temp[(1, 1 % pg_num)] = [7, 8]
+    return m
+
+
+@pytest.mark.parametrize("pg_num,size,erasure", [
+    (1000, 3, False), (777, 10, True), (1, 3, False), (4097, 6, True), (33, 12, True),
+])
+def test_map_pool_on_the_card(cuda, pg_num, size, erasure):
+    """OSDMap.map_pool on the card equals device="cpu" and the scalar
+    pg_to_up_acting_osds: pg_num not a power of two, and EC pools wider
+    than the 8 hosts, whose indep rule leaves ITEM_NONE holes."""
+    from ceph_tpu_torch.crush import ITEM_NONE
+    from ceph_tpu_torch.ops import crush_kernels
+
+    m = _osdmap_pair(pg_num, size, erasure, None)
+    cpu = _osdmap_pair(pg_num, size, erasure, "cpu")
+    before = crush_kernels.LAUNCHES["crush_straw2_k3"]
+    up, prim = m.map_pool(1)
+    assert m.device.type == "cuda"
+    assert crush_kernels.LAUNCHES["crush_straw2_k3"] > before
+    cup, cprim = cpu.map_pool(1)
+    np.testing.assert_array_equal(up, cup)
+    np.testing.assert_array_equal(prim, cprim)
+    if size > 8:
+        assert (up == ITEM_NONE).any()
+    for ps in range(0, pg_num, max(1, pg_num // 61)):
+        u, p, _, _ = m.pg_to_up_acting_osds(1, ps)
+        assert up[ps].tolist() == (u if erasure else (u + [ITEM_NONE] * size)[:size])
+        assert prim[ps] == p
+
+
+def test_osdmap_without_a_device_maps_on_the_card_or_raise():
+    """No ``device``: OSDMap.map_pool runs on the card, or raises without
+    one (never on the CPU).  Runs on both kinds of machine."""
+    m = _osdmap_pair(64, 3, False, None)
+    if torch.cuda.is_available():
+        m.map_pool(1)
+        assert m.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            m.map_pool(1)
 
 
 # ---- the OSD's batchers, the device pool and the stream pipeline ----
