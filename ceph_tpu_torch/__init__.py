@@ -20,7 +20,10 @@ native_oracle loader, auth/, compressor/, store/, msg/ and the wire
 messages of mon/, mgr/ and osd/, the PG log and past intervals); and
 the OSDMap (osd/osdmap.py, whose map_pool maps a pool on the card
 through K3), the placement core, the upmap balancer and
-tools/osdmaptool.
+tools/osdmaptool; and the cluster: the OSD daemon (osd/daemon.py and its
+backend, recovery and scrub mixins), the monitor (mon/), librados
+(client/) and qa/vstart.LocalCluster, which hands its device to every
+daemon.
 """
 from .common.device import resolve_device
 

@@ -20,7 +20,12 @@ from .perf_counters import PerfCountersCollection
 
 
 class CephContext:
-    def __init__(self, name: str = "client.admin", overrides: dict | None = None):
+    def __init__(self, name: str = "client.admin", overrides: dict | None = None,
+                 device=None):
+        #: the device this entity's GF applies and OSDMaps run on, as the
+        #: caller asked for it (None = ``cuda``); a daemon resolves it
+        #: through common/device.py, which raises without a card
+        self.device = device
         self.conf = Config(default_options())
         self.conf.set("name", name, level=LEVEL_CMDLINE)
         if overrides:

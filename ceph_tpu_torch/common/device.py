@@ -35,3 +35,12 @@ def as_bytes_tensor(x, device: torch.device) -> torch.Tensor:
     if not arr.flags.writeable:  # torch.from_numpy wants a writable buffer
         arr = arr.copy()
     return torch.from_numpy(arr).to(device)
+
+
+def to_host(x) -> np.ndarray:
+    """A codec's output (a uint8 tensor on its device) as a host numpy
+    array: what the OSD stores, checksums and sends.  Numpy input passes
+    through."""
+    if isinstance(x, torch.Tensor):
+        return x.cpu().numpy()
+    return np.asarray(x, dtype=np.uint8)

@@ -535,12 +535,12 @@ def default_options() -> OptionTable:
                    "device.  Read once at daemon start with "
                    "device_topology", min=0),
             Option("ec_kernel", str, "auto",
-                   "encode kernel selection for the default (jax) EC "
-                   "plugin: oracle/numpy swap the backend, xla/pallas "
-                   "force the GF kernel path (process-wide, mirrors "
-                   "CEPH_TPU_EC_KERNEL); auto keeps TPU dispatch. "
-                   "Applied when a pool's codec is first compiled — set "
-                   "it at daemon construction, not injectargs",
+                   "encode backend for the default (torch) EC plugin: "
+                   "numpy swaps in the host referee; oracle is not "
+                   "ported yet and raises; auto/xla/pallas keep the one "
+                   "path per device (K1/K2 on cuda, their plain version "
+                   "on cpu). Applied when a pool's codec is first built "
+                   "— set it at daemon construction, not injectargs",
                    enum=("auto", "xla", "pallas", "oracle", "numpy")),
         ]
     )

@@ -66,6 +66,17 @@ class ErasureCodeInterface(ABC):
         self, want_to_read: set[int], chunks: dict, chunk_size: int
     ) -> dict[int, torch.Tensor]: ...
 
+    def supports_parity_delta(self) -> bool:
+        """True iff encode_chunks is BYTE-COLUMN-LOCAL and chunk
+        placement is the identity split: parity byte at column c depends
+        only on the k data bytes at column c.  That is exactly the
+        property the OSD's partial-stripe RMW parity-delta relies on
+        (delta window encode XORed into stored parity), and the one under
+        which the write batcher fuses stripes of different ops.
+        Sub-chunked codes (CLAY) return False — for them the OSD falls
+        back to full-stripe re-encode."""
+        return False
+
     def decode_concat(self, chunks: dict[int, np.ndarray]) -> bytes:
         """Reassemble the original byte stream from data chunks (reference:
         ErasureCode.cc :: decode_concat)."""

@@ -93,6 +93,11 @@ class RSCodec(ErasureCode):
             self.bitplane = BitplaneCodec(self.coding, self.device)
 
     # -- hot path (reference: ErasureCodeInterface.h :: encode_chunks) ----
+    def supports_parity_delta(self) -> bool:
+        # byte-wise GF matrix apply: strictly column-local, identity
+        # placement — safe for the OSD's RMW parity-delta
+        return True
+
     def encode_chunks(self, data_chunks) -> torch.Tensor:
         data = as_bytes_tensor(data_chunks, self.device)
         if self.backend == "torch":

@@ -76,6 +76,9 @@ class ShecCodec(ErasureCode):
         self.coding = self.checked_coding(coding).astype(np.int64)
 
     # -- encode -----------------------------------------------------------
+    def supports_parity_delta(self) -> bool:
+        return True  # byte-matrix apply, column-local, identity layout
+
     def encode_chunks(self, data_chunks) -> torch.Tensor:
         from ...ops.bitplane import apply_matrix
 

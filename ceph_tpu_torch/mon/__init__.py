@@ -1,8 +1,16 @@
-"""ceph_tpu_torch.mon — the control plane's port (reference: ceph_tpu/mon).
+"""ceph_tpu_torch.mon — the control plane's port (reference: ceph_tpu/mon,
+src/mon).
 
-Ported so far: the monitor's wire message types (mon/messages.py).  The
-reference package's __init__ also exports MonClient, MonMap and Monitor;
-they come with the monitor's own slice, so importing this package pulls
-in nothing unported (osd/messages.py and mgr/messages.py import
-``mon.messages._JsonMessage``).
+Monitors hold the authoritative cluster maps, replicated across the quorum
+by single-decree Paxos over the MonitorDBStore (here: LogKV/MemKV).  The
+OSDMonitor is the OSDMap authority: EC profile validation (instantiating
+the codec through the erasure-code registry on the monitor's device, as
+`osd erasure-code-profile set` vets `plugin=torch`), pool creation with
+CRUSH rule synthesis, failure-report corroboration → down, and the
+down→out timer.  MonClient is the daemon/client session: commands, map
+subscriptions, boot.
 """
+from .mon_client import MonClient
+from .monitor import MonMap, Monitor
+
+__all__ = ["MonClient", "MonMap", "Monitor"]

@@ -221,6 +221,28 @@ class DevicePool:
 #: ``ec_device_pool`` per flush, so the option works at run time
 POOL = DevicePool()
 
+#: conf already applied to the process-wide pool (first daemon wins,
+#: like the sentinel policy — later daemons must not silently undo an
+#: operator's escape hatch or re-size the bound)
+_conf_applied = False
+
+
+def configure_from_conf(conf) -> None:
+    """Wire the declared options into the process-wide pool at daemon
+    start.  The FIRST daemon in the process wins; the write batcher
+    additionally re-reads ``ec_device_pool`` per flush, so the hatch
+    stays per-daemon and runtime there.  (The reference also threads a
+    device-topology policy into the bound; the port has one device per
+    daemon, ``common/device.py``, and no such policy.)"""
+    global _conf_applied
+    if _conf_applied:
+        return
+    _conf_applied = True
+    POOL.configure(
+        enabled=bool(conf.get("ec_device_pool")),
+        max_bytes=int(conf.get("ec_device_pool_max_bytes")),
+    )
+
 
 def commit(parts, device=None, pooled: bool = True) -> torch.Tensor:
     """Host arrays [rows, L_i] -> one [rows, sum L_i] uint8 buffer on

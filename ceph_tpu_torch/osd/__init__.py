@@ -5,7 +5,8 @@ OSDMap::calc_pg_upmaps, with the CRUSH descent of a whole pool batched on
 the card (``OSDMap.map_pool`` → crush_do_rule_batch → K3); the PG's log,
 past intervals and state; the wire messages; and the OSD's data plane:
 the write batcher's fused flush, the read batcher's gather and grouped
-decode, and the primary's read cache.  This package exports what the
+decode, and the primary's read cache; and the daemon (osd/daemon.py) with
+its EC backend, recovery and scrub.  This package exports what the
 reference's does.
 """
 from .osdmap import (

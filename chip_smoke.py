@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main paths once on one GPU: the
 erasure-code data plane, batched CRUSH placement, the OSD's write and
-read batchers, and the OSDMap's pool-wide PG mapping.
+read batchers, the OSDMap's pool-wide PG mapping, and a cluster of
+monitors and OSDs serving librados clients.
 
     python3 chip_smoke.py            (from the repo root; needs one CUDA card)
 
@@ -50,6 +51,20 @@ affinity 0 on four hosts (only the upmapped PGs move), then host 17
 out (only PGs that held it move, none keeps an out OSD); then
 osdmaptool --test-map-pgs --upmap on a map file on cuda and with
 --device cpu, which must print the same text.
+
+The cluster path (phases 25-29): a port LocalCluster on the card, 3
+monitors and 12 OSDs (one per host, failure domain osd), sized after
+`rados bench`'s defaults (4 MiB objects, 16 concurrent ops) with pg_num
+64 (mon_target_pg_per_osd 100 x 12 OSDs over pool size 12, rounded down
+to a power of two): an RS(8,4) cauchy_good pool on plugin=torch takes
+32 writes and reads (every byte, and 8 objects' 12 shards against the
+numpy codec; every stripe through the write batcher, none inline); an
+OSD holding a data shard is killed and every object read whole and in
+a range inside the lost chunk (the read batcher's windowed decode);
+that OSD returns empty and the time to clean is the repair latency; a
+CLAY(8,4,d=11) pool's 8 objects are rebuilt on another OSD by the
+planned repair (d = 11 helpers' repair planes, one K2 apply each); a flipped byte in one
+stored shard is found and repaired by a deep scrub.
 
 For each path the launch counters are set to 0 just before it and read
 just after, and every kernel of the path must have launched.  K3 is
@@ -105,6 +120,12 @@ CPU_CHECK_XS = 1 << 16
 SCALAR_CHECK_XS = 512
 SCALAR_CHECK_PGS = 1024
 PROBE_ELEMENTS = 1 << 25
+#: the cluster phases, after `rados bench`'s defaults (-b 4M, -t 16); the
+#: object counts are cut from 64 and 16 to keep the phases near 90 s
+CLUSTER_OBJECTS = 32
+CLUSTER_OBJECT_BYTES = 4 << 20
+CLUSTER_THREADS = 16
+CLUSTER_CLAY_OBJECTS = 8
 
 
 def log(msg: str) -> None:
@@ -1065,6 +1086,383 @@ def osdmap_slice(torch, dev, card: str, smi: str) -> list[dict]:
     return entries
 
 
+# ---- phases 25-29: the cluster (monitors, OSDs, librados) on the card ----
+
+
+def run_ops(n_ops: int, threads: int, op) -> tuple[list[float], float]:
+    """`op(i)` for i < n_ops on `threads` client threads: per-op latencies
+    and the wall time, in seconds.  Raises the first op's error."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    lat = [0.0] * n_ops
+
+    def go(i: int) -> None:
+        t0 = time.perf_counter()
+        op(i)
+        lat[i] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(threads) as ex:
+        for f in [ex.submit(go, i) for i in range(n_ops)]:
+            f.result(timeout=600)
+    return lat, time.perf_counter() - t0
+
+
+def rate(lat: list[float], wall: float, nbytes: int) -> str:
+    return (f"wall {wall:.2f} s, per op {pcts(lat)}, "
+            f"{nbytes / wall / 2**30:.3f} GiB/s")
+
+
+def cluster_slice(torch, dev, card: str, smi: str) -> list[dict]:
+    """Phases 25-29: a port LocalCluster on the card (3 monitors, 12 OSDs
+    one per host, failure domain osd), sized after `rados bench`'s
+    defaults: 4 MiB objects, 16 concurrent ops, pg_num 64 (Ceph's
+    mon_target_pg_per_osd 100 x 12 OSDs / pool size 12, rounded down to
+    a power of two)."""
+    from ceph_tpu_torch.common.kernel_telemetry import TELEMETRY
+    from ceph_tpu_torch.ec.registry import ErasureCodePluginRegistry
+    from ceph_tpu_torch.gf.reference_codec import encode_chunks as ref_encode
+    from ceph_tpu_torch.ops import gf_kernels
+    from ceph_tpu_torch.ops.bitplane import TABLES
+    from ceph_tpu_torch.ops.gf_kernels import apply_matrix_plain, gf_apply
+    from ceph_tpu_torch.osd.osdmap import object_ps
+    from ceph_tpu_torch.qa import LocalCluster
+    from ceph_tpu_torch.store.object_store import Transaction
+
+    k, m, d = 8, 4, 11
+    n_osds, pg_num = 12, 64
+    n_obj, obj_bytes, threads = CLUSTER_OBJECTS, CLUSTER_OBJECT_BYTES, CLUSTER_THREADS
+    n_clay = CLUSTER_CLAY_OBJECTS
+    rng = np.random.default_rng(SEED + 25)
+    objs = [rng.integers(0, 256, obj_bytes, dtype=np.uint8).tobytes() for _ in range(n_obj)]
+    oid = [f"bench_{i}" for i in range(n_obj)]
+
+    def launches() -> dict:
+        torch.cuda.synchronize()
+        return dict(gf_kernels.LAUNCHES)
+
+    def rows(pool_name: str) -> dict:
+        agg = dict.fromkeys(("repairs", "helper_reads", "bytes_read", "bytes_repaired",
+                             "full_gathers"), 0)
+        for osd in c.osds.values():
+            for row in osd.recovery_acct.dump()["per_pool"]["rows"]:
+                if row["labels"]["pool"] == str(pids[pool_name]):
+                    for f in agg:
+                        agg[f] += row[f]
+        return agg
+
+    def stats(attr: str) -> dict:
+        out: dict = {}
+        for osd in c.osds.values():
+            for f, v in getattr(osd, attr).stats().items():
+                out[f] = out.get(f, 0) + v
+        return out
+
+    def victim_shards(victim: int, pid: int) -> dict:
+        st = c.osds[victim].store
+        return {(cid, o): bytes(st.read(cid, o)) for cid in st.list_collections()
+                if cid.startswith(f"{pid}.") for o in st.list_objects(cid)
+                if not o.startswith("_")}
+
+    def wait_active(name: str) -> float:
+        """Seconds until the primary of every PG of a new pool has peered
+        (ops before that are refused with EAGAIN and retried)."""
+        t0 = time.perf_counter()
+        placed = (None, [])
+        while True:
+            m_ = c._leader().osdmon.osdmap
+            if placed[0] is not m_:  # one map's primaries, computed once
+                placed = (m_, [m_.pg_to_up_acting_osds(pids[name], ps)[3]
+                               for ps in range(pg_num)])
+            waiting = 0
+            for ps, primary in enumerate(placed[1]):
+                pg = c.osds[primary].pgs.get(f"{pids[name]}.{ps}")
+                waiting += pg is None or pg.activated_interval != pg.interval_start
+            if not waiting:
+                return time.perf_counter() - t0
+            check(time.perf_counter() - t0 < 600, f"{waiting} PGs of {name} never peered")
+            time.sleep(0.5)
+
+    def wipe_and_revive(victim: int) -> float:
+        """The victim comes back with an empty store (a replaced disk);
+        seconds until every PG of both pools is clean again."""
+        c.kill_osd(victim)
+        c._stores.pop(victim)
+        t0 = time.perf_counter()
+        c.revive_osd(victim)
+        for name in pids:
+            c.wait_clean(name, timeout=600)
+        return time.perf_counter() - t0
+
+    # A killed OSD is noticed by the primaries alone: a sub-op to it
+    # times out after 1.5 s.  The monitor's failure detector is held off
+    # (heartbeat grace 600 s), because an OSD that comes back is marked
+    # down again by the failure reports its peers sent while it was dead,
+    # and nothing re-boots it (the reference has the same race), so the
+    # repair of phases 27 and 28 would never start.  The repair planner
+    # plans on every live helper: its cost-aware pruning (on by default)
+    # drops helpers whose queues the clients deepened, and a CLAY plan on
+    # fewer than d helpers falls back to reading k whole chunks.
+    conf = {"osd_subop_reply_timeout": 1.5, "osd_heartbeat_grace": 600.0,
+            "osd_repair_cost_aware": False}
+    c = LocalCluster(n_mons=3, n_osds=n_osds, conf_overrides=conf)  # device: cuda
+    c.start()
+    try:
+        check(all(o.device.type == "cuda" for o in c.osds.values()), "an OSD is not on cuda")
+        # every inline (non-batched) encode the OSDs record: none may run
+        # on the RS(8,4) pool, whose writes belong to the write batcher
+        inline = []
+        for osd in c.osds.values():
+            def staged(stage, t0, t1, span=None, _f=osd._op_stage, **tags):
+                if tags.get("codec_inline"):
+                    inline.append(stage)
+                return _f(stage, t0, t1, span, **tags)
+            osd._op_stage = staged
+        c.create_ec_pool("rs84", k=k, m=m, pg_num=pg_num, plugin="torch",
+                         extra_profile={"technique": "cauchy_good"})
+        client = c.client()
+        io = client.open_ioctx("rs84")
+        pids = {"rs84": client.pool_id("rs84")}
+        peer_s = {"rs84": wait_active("rs84")}
+        codec = ErasureCodePluginRegistry.instance().factory(
+            {"plugin": "numpy", "technique": "cauchy_good", "k": str(k), "m": str(m)})
+        L = codec.get_chunk_size(obj_bytes)
+
+        # ---- the cluster path: counts set to 0 here, read after phase 29 ----
+        gf_kernels.reset_launch_counts()
+        per_phase = {}
+
+        # 25. write 64 x 4 MiB from 16 client threads, then read them back
+        l0, wb0 = launches(), stats("write_batcher")
+        w_lat, w_wall = run_ops(n_obj, threads, lambda i: io.write_full(oid[i], objs[i]))
+        back = [None] * n_obj
+        r_lat, r_wall = run_ops(n_obj, threads, lambda i: back.__setitem__(i, io.read(oid[i])))
+        for i in range(n_obj):
+            check(back[i] == objs[i], f"phase 25: {oid[i]} reads back wrong")
+        m_ = c._leader().osdmon.osdmap
+        for i in range(8):
+            ps = object_ps(oid[i], pg_num)
+            _u, _up, acting, _p = m_.pg_to_up_acting_osds(pids["rs84"], ps)
+            data = np.zeros(k * L, np.uint8)
+            data[:obj_bytes] = np.frombuffer(objs[i], np.uint8)
+            full = np.vstack([data.reshape(k, L), ref_encode(codec.coding, data.reshape(k, L))])
+            for j, o in enumerate(acting):
+                if o < 0:
+                    continue  # a slot CRUSH left empty (see phase 28)
+                got = bytes(c.osds[o].store.read(f"{pids['rs84']}.{ps}s{j}", oid[i]))
+                check(got == full[j].tobytes(),
+                      f"phase 25: {oid[i]} shard {j} on osd.{o} differs from the numpy codec")
+        wb, l1 = stats("write_batcher"), launches()
+        per_phase[25] = {n: l1[n] - l0[n] for n in l1}
+        check(per_phase[25]["gf_apply_k1"] > 0, "phase 25: K1 was not launched")
+        check(wb["flushes"] > wb0.get("flushes", 0), "phase 25: no write-batcher flush")
+        check(wb["stripes"] - wb0.get("stripes", 0) == n_obj,
+              f"phase 25: {wb['stripes'] - wb0.get('stripes', 0)} stripes batched for "
+              f"{n_obj} writes")
+        check(not inline, f"phase 25: {len(inline)} encodes ran inline in the codec")
+        stages = {}
+        for osd in c.osds.values():
+            dump = osd.cct.perf.dump()["osd"]
+            for st in ("stage_admission", "stage_queue", "stage_encode", "stage_subop",
+                       "stage_commit", "stage_read_gather", "stage_read_decode"):
+                h = dump.get(st) or {}
+                cnt, tot = stages.get(st, (0, 0.0))
+                stages[st] = (cnt + h.get("count", 0), tot + h.get("sum", 0.0))
+        log(f"[25 RS(8,4) cluster] {n_obj} x {obj_bytes >> 20} MiB from {threads} threads, "
+            f"pg_num {pg_num} (every PG peered {peer_s['rs84']:.1f} s after the pool was "
+            f"created): every byte and 8 objects' 12 shards equal the numpy codec; "
+            f"{wb['flushes'] - wb0.get('flushes', 0)} write-batcher flushes, "
+            f"K1 {per_phase[25]['gf_apply_k1']} launches, inline 0; write "
+            f"{rate(w_lat, w_wall, n_obj * obj_bytes)}; read {rate(r_lat, r_wall, n_obj * obj_bytes)}")
+        log("[25 stages] per op, mean ms over the OSDs' histograms: " + ", ".join(
+            f"{st[6:]} {tot / cnt * 1e3:.2f} (x{cnt})" for st, (cnt, tot) in stages.items() if cnt))
+
+        # 26. kill an OSD holding a data shard; full and ranged degraded reads
+        ps0 = object_ps(oid[0], pg_num)
+        _u, _up, acting0, primary0 = m_.pg_to_up_acting_osds(pids["rs84"], ps0)
+        victim = next(acting0[j] for j in range(k) if acting0[j] >= 0 and acting0[j] != primary0)
+        shard_of = {}
+        for i in range(n_obj):
+            _u, _up, acting, _p = m_.pg_to_up_acting_osds(pids["rs84"], object_ps(oid[i], pg_num))
+            # a PG with the victim's slot left empty needs no decode
+            shard_of[i] = acting.index(victim) if victim in acting else k
+        before = victim_shards(victim, pids["rs84"])
+        l0, rb0 = launches(), stats("read_batcher")
+        c.kill_osd(victim)
+        window = min(64 << 10, L // 2)  # inside one chunk, past its first 4 KiB
+        full_lat, full_wall = run_ops(n_obj, threads, lambda i: back.__setitem__(i, io.read(oid[i])))
+        for i in range(n_obj):
+            check(back[i] == objs[i], f"phase 26: degraded read of {oid[i]} is wrong")
+        dec0 = TELEMETRY.dump().get("read_batch_decode", {}).get("bytes_in", 0)
+
+        def ranged(i: int) -> None:
+            off = (shard_of[i] % k) * L + 4096
+            back[i] = (off, io.read(oid[i], off=off, length=window))
+
+        rg_lat, rg_wall = run_ops(n_obj, threads, ranged)
+        for i in range(n_obj):
+            off, got = back[i]
+            check(got == objs[i][off:off + window], f"phase 26: ranged read of {oid[i]} is wrong")
+        decoded = TELEMETRY.dump().get("read_batch_decode", {}).get("bytes_in", 0) - dec0
+        need = sum(1 for i in range(n_obj) if shard_of[i] < k)
+        rb, l1 = stats("read_batcher"), launches()
+        per_phase[26] = {n: l1[n] - l0[n] for n in l1}
+        check(rb["decode_groups"] > rb0.get("decode_groups", 0), "phase 26: no decode group")
+        check(decoded == need * k * window,
+              f"phase 26: the ranged decodes took {decoded} bytes, want {need} x {k} x {window}")
+        check(per_phase[26]["gf_apply_k1"] + per_phase[26]["gf_apply_k2"] > 0,
+              "phase 26: no K1 or K2 launch")
+        log(f"[26 degraded] osd.{victim} down ({need} of {n_obj} objects lost a data shard): "
+            f"full reads {rate(full_lat, full_wall, n_obj * obj_bytes)}; ranged {window >> 10} KiB "
+            f"reads inside the lost chunk {rate(rg_lat, rg_wall, n_obj * window)}; "
+            f"{rb['decode_groups'] - rb0.get('decode_groups', 0)} read-batcher decode groups, "
+            f"launches {per_phase[26]}")
+
+        # 27. the victim returns empty: repair latency to clean
+        l0, a0 = launches(), rows("rs84")
+        c._stores.pop(victim)
+        t0 = time.perf_counter()
+        c.revive_osd(victim)
+        c.wait_clean("rs84", timeout=600)
+        repair_s = time.perf_counter() - t0
+        after = victim_shards(victim, pids["rs84"])
+        check(after == before, f"phase 27: osd.{victim}'s rebuilt shards differ "
+              f"({len(after)} against {len(before)})")
+        a1, l1 = rows("rs84"), launches()
+        per_phase[27] = {n: l1[n] - l0[n] for n in l1}
+        rebuilt = sum(len(b) for b in after.values())
+        log(f"[27 repair] osd.{victim} back empty, clean in {repair_s:.2f} s: {len(after)} "
+            f"shards, {rebuilt / 2**20:.1f} MiB rebuilt ({rebuilt / repair_s / 2**30:.3f} GiB/s), "
+            f"{a1['repairs'] - a0['repairs']} rebuilds reading "
+            f"{(a1['bytes_read'] - a0['bytes_read']) / 2**20:.1f} MiB, launches {per_phase[27]}")
+
+        # 28. CLAY(8,4,d=11): 16 x 4 MiB, an OSD back empty, planned repair
+        c.create_ec_pool("clay84", k=k, m=m, pg_num=pg_num, plugin="clay",
+                         extra_profile={"d": str(d)})
+        cio = client.open_ioctx("clay84")
+        pids["clay84"] = client.pool_id("clay84")
+        peer_s["clay84"] = wait_active("clay84")
+        # CRUSH's indep retries can leave a slot of a 12-wide PG empty on
+        # exactly 12 OSDs; a lost shard there has 10 helpers, fewer than
+        # d, and CLAY reads k whole chunks instead.  The objects go to
+        # PGs whose 12 slots are all placed.
+        m_ = c._leader().osdmon.osdmap
+        full_pgs = [ps for ps in range(pg_num)
+                    if min(m_.pg_to_up_acting_osds(pids["clay84"], ps)[2]) >= 0]
+        coid = [o for o in (f"clay_{j}" for j in range(64 * n_clay))
+                if object_ps(o, pg_num) in full_pgs][:n_clay]
+        check(len(coid) == n_clay, "too few CLAY object names land in complete PGs")
+        cw_lat, cw_wall = run_ops(n_clay, threads, lambda i: cio.write_full(coid[i], objs[i]))
+        # the victim is no primary of these objects' PGs: a primary that
+        # lost its own shard rebuilds it by the broad gather, by design
+        # (recovery.py, _plan_repair_read: no local anchor to plan from)
+        primaries = {m_.pg_to_up_acting_osds(pids["clay84"], object_ps(coid[i], pg_num))[3]
+                     for i in range(n_clay)}
+        clay_victim = next(o for o in range(n_osds) if o not in primaries and o != victim)
+        before = victim_shards(clay_victim, pids["clay84"])
+        l0, a0 = launches(), rows("clay84")
+        clay_s = wipe_and_revive(clay_victim)
+        a1, l1 = rows("clay84"), launches()
+        per_phase[28] = {n: l1[n] - l0[n] for n in l1}
+        got = victim_shards(clay_victim, pids["clay84"])
+        check(got == before, f"phase 28: osd.{clay_victim}'s CLAY shards differ")
+        reps = a1["repairs"] - a0["repairs"]
+        gathers = a1["full_gathers"] - a0["full_gathers"]
+        helper_reads = a1["helper_reads"] - a0["helper_reads"]
+        # every shard has a planned rebuild (d helpers' repair planes, one
+        # K2 apply); a rebuild retried after a push to the returning OSD
+        # failed may take the broad gather, which the accounting counts
+        check(reps - gathers >= len(before),
+              f"phase 28: {reps - gathers} planned rebuilds for {len(before)} shards")
+        check(per_phase[28]["gf_apply_k2"] >= len(before),
+              f"phase 28: {per_phase[28]['gf_apply_k2']} K2 launches for {len(before)} shards")
+        for i in range(n_clay):
+            check(cio.read(coid[i]) == objs[i], f"phase 28: {coid[i]} reads back wrong")
+        clay_read = a1["bytes_read"] - a0["bytes_read"]
+        chunk = len(next(iter(before.values())))
+        log(f"[28 CLAY(8,4,d=11)] pool peered in {peer_s['clay84']:.1f} s, "
+            f"{pg_num - len(full_pgs)} of its {pg_num} PGs with a slot left empty; "
+            f"{n_clay} x {obj_bytes >> 20} MiB written "
+            f"({rate(cw_lat, cw_wall, n_clay * obj_bytes)}); osd.{clay_victim} back empty, "
+            f"clean in {clay_s:.2f} s: {len(before)} shards of {chunk} B, {reps} rebuilds "
+            f"({reps - gathers} planned, {gathers} broad gathers), {helper_reads} helper reads, "
+            f"{clay_read / 2**20:.2f} MiB read against {reps * k * chunk / 2**20:.2f} MiB for "
+            f"full-decode repairs ({clay_read / (reps * k * chunk):.3f}); launches "
+            f"{per_phase[28]}")
+
+        # 29. a flipped byte in one stored shard: deep scrub reports and repairs it
+        l0 = launches()
+        ps = object_ps(oid[1], pg_num)
+        m_ = c._leader().osdmon.osdmap
+        _u, _up, acting, primary = m_.pg_to_up_acting_osds(pids["rs84"], ps)
+        bad = next(o for o in acting if o >= 0 and o != primary)
+        cid = f"{pids['rs84']}.{ps}s{acting.index(bad)}"
+        store = c.osds[bad].store
+        orig = bytes(store.read(cid, oid[1]))
+        tx = Transaction()
+        tx.write(cid, oid[1], 0, bytes([orig[0] ^ 0xFF]) + orig[1:])
+        store.queue_transaction(tx)
+        t0 = time.perf_counter()
+        report = io.scrub_pg(ps)
+        scrub_s = time.perf_counter() - t0
+        check(bool(report.get("repaired")), f"phase 29: scrub did not repair: {report}")
+        check(bytes(store.read(cid, oid[1])) == orig, "phase 29: the shard was not restored")
+        check(not io.scrub_pg(ps).get("inconsistent"), "phase 29: still inconsistent")
+        check(io.read(oid[1]) == objs[1], "phase 29: the object reads back wrong")
+        l1 = launches()
+        per_phase[29] = {n: l1[n] - l0[n] for n in l1}
+        log(f"[29 deep scrub] osd.{bad} shard of {oid[1]} corrupted: reported and repaired "
+            f"in {scrub_s:.2f} s, reads back equal; launches {per_phase[29]}")
+    finally:
+        c.stop()
+
+    total = {n: sum(p[n] for p in per_phase.values()) for n in gf_kernels.KERNELS}
+    log(f"[cluster path] launches {total} by phase {per_phase}")
+    for name in gf_kernels.KERNELS:
+        check(total[name] > 0, f"{name} was not launched on the cluster path")
+
+    # K1 and K2 at the cluster path's launch shapes
+    rs = ErasureCodePluginRegistry.instance().factory(
+        {"plugin": "torch", "technique": "cauchy_good", "k": str(k), "m": str(m)})
+    clay = ErasureCodePluginRegistry.instance().factory(
+        {"plugin": "clay", "k": str(k), "m": str(m), "d": str(d)})
+    lost = [j for j in range(k + m) if j != 1][:k]
+    dm, _ = rs.bitplane._decode_entry(tuple(lost))
+    M = clay.repair_matrix(0, tuple(range(1, d + 1)))
+    sub = clay.get_chunk_size(obj_bytes) // clay.get_sub_chunk_count()
+    cases = (
+        ("gf_apply_k1", "ceph_tpu/ops/pallas_gf.py:184", rs.coding, L,
+         f"cluster write (phase 25): one 4 MiB object's RS(8,4) stripe [8, {L}]"),
+        ("gf_apply_k1", "ceph_tpu/ops/pallas_gf.py:184", dm, L,
+         f"cluster degraded read (phase 26): RS(8,4) decode [8, 8] x {L}"),
+        ("gf_apply_k2", "ceph_tpu/ops/pallas_gf.py:202", M, sub,
+         f"cluster CLAY(8,4,d=11) planned repair (phase 28): [{M.shape[0]}, {M.shape[1]}] "
+         f"x {sub}"),
+    )
+    entries = []
+    for name, replaces, mat, cols, shape in cases:
+        x = rand_bytes(torch, (mat.shape[1], cols), SEED + 29, dev)
+        tables = TABLES.get(mat, dev)
+        got = gf_apply(mat, [x], tables=tables)
+        plain = apply_matrix_plain(mat, x)
+        torch.cuda.synchronize()
+        err = max_err(torch, got, plain)
+        check(err == 0, f"{name} disagrees with the plain version at {shape}")
+        ms = time_ms(torch, gf_kernels.prepare(mat, [x], tables), iters=20)
+        plain_ms = time_ms(torch, lambda: apply_matrix_plain(mat, x), iters=3, warmup=1)
+        bound = bound_ms(*mat.shape, cols)
+        entries.append({
+            "name": name, "route": "cuda", "source": "ceph_tpu_torch/csrc/gf_apply.cu",
+            "replaces": replaces, "launches": total[name], "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes", "library_ms": None,
+            "shape": shape, "launches_by_phase": {p: v[name] for p, v in per_phase.items()},
+            "card": card, "nvidia_smi": smi,
+        })
+        log(f"[29 {name}] {shape}: {ms:.4f} ms, bound {bound:.4f} ms by bytes, "
+            f"plain {plain_ms:.3f} ms")
+    return entries
+
+
 def main() -> int:
     import torch
 
@@ -1284,6 +1682,7 @@ def main() -> int:
     kernels += crush_slice(torch, dev, card, smi)
     kernels += osd_slice(torch, dev, card, smi, rs84, stripes, objects, si)
     kernels += osdmap_slice(torch, dev, card, smi)
+    kernels += cluster_slice(torch, dev, card, smi)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))
