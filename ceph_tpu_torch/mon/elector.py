@@ -27,6 +27,8 @@ class Elector:
         # RE-PROPOSE, never declare victory
         self._deferred = False
         self._timer: threading.Timer | None = None
+        #: the rank elected at `epoch`, once a victory is declared or heard
+        self._victor: int | None = None
         self._lock = make_lock("mon::elector")
 
     def stop(self) -> None:
@@ -59,6 +61,7 @@ class Elector:
                 self.epoch += 2
             self._electing = True
             self._deferred = False
+            self._victor = None
             self._acks = {self.mon.rank}
             self.mon.set_electing()
             for r in self.mon.other_ranks():
@@ -98,6 +101,7 @@ class Elector:
             self._timer.cancel()
             self._timer = None
         self.epoch += 1  # even = stable
+        self._victor = self.mon.rank
         quorum = sorted(self._acks)
         for r in self.mon.other_ranks():
             self.mon.send_mon(
@@ -122,6 +126,7 @@ class Elector:
             was_electing = self._electing
             if msg.epoch > self.epoch:
                 self.epoch = msg.epoch
+                self._victor = None
             if msg.rank < self.mon.rank:
                 # defer to the lower rank (reference: Elector::defer); keep
                 # a timer armed so a proposer that dies mid-election leaves
@@ -164,7 +169,16 @@ class Elector:
         with self._lock:
             if msg.epoch < self.epoch:
                 return
+            if msg.epoch == self.epoch and self._victor not in (None, msg.rank):
+                # two victories at one epoch: a proposal was lost on its way
+                # to a mon not up yet, and a third mon acked both proposers.
+                # Following the other victor would leave each leader a peon
+                # of the other and the cluster with none; elect again.
+                self._electing = False
+                self.start_election()
+                return
             self.epoch = msg.epoch
+            self._victor = msg.rank
             self._electing = False
             self._deferred = False
             if self._timer is not None:

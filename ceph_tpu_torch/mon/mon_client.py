@@ -180,7 +180,13 @@ class MonClient(Dispatcher):
         """Send a CLI-style command; transparently follows the leader
         (reference: MonClient command routing + Objecter retries)."""
         deadline = threading.TIMEOUT_MAX if timeout is None else timeout
-        attempts = 0
+        wait = min(deadline, 10.0)
+        # Five sends may go unanswered.  An election or a quorum still
+        # syncing answers at once (-307 naming no other leader, -11), so
+        # counting those NACKs would give up within a second: they are
+        # waited out instead, up to the time five unanswered sends take.
+        unanswered = 0
+        give_up = time.monotonic() + 5 * wait
         addr = None
         # one tid for every attempt of this logical command: the monitor
         # dedups on (src, session, tid), so a retry after a lost ack
@@ -189,21 +195,21 @@ class MonClient(Dispatcher):
         with self._lock:
             self._tid += 1
             tid = self._tid
-        while attempts < 5:
-            attempts += 1
+        while unanswered < 5 and time.monotonic() < give_up:
             try:
                 conn = self._connect(addr)
+                asked = self._conn_addr
                 conn.send_message(
                     MMonCommand(tid=tid, cmd=cmd, session=self._session)
                 )
             except (OSError, ConnectionError):
+                unanswered += 1
                 addr = None
                 continue
             with self._lock:
-                ok = self._cond.wait_for(
-                    lambda: tid in self._acks, timeout=min(deadline, 10.0)
-                )
+                ok = self._cond.wait_for(lambda: tid in self._acks, timeout=wait)
                 if not ok:
+                    unanswered += 1
                     addr = None
                     continue
                 retval, result = self._acks.pop(tid)
@@ -211,8 +217,11 @@ class MonClient(Dispatcher):
                 # peon: redial the leader it names
                 la = result.get("leader_addr")
                 addr = tuple(la) if la else None
-                if addr is None:
-                    time.sleep(0.2)  # election in progress
+                if addr is None or addr == asked:
+                    # electing: it names no leader, or itself (a leader
+                    # that has called an election keeps its rank)
+                    addr = None
+                    time.sleep(0.2)
                 continue
             if retval == -11:  # EAGAIN: leader elected, state still syncing
                 time.sleep(0.2)

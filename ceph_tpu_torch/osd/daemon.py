@@ -37,8 +37,10 @@ recovery) are kept.
 from __future__ import annotations
 
 
+import json
 import threading
 import time
+from collections import OrderedDict
 
 from ..common.device import resolve_device
 from ..common.failpoint import failpoint, registry as fp_registry
@@ -100,6 +102,58 @@ from .subops import SubOpsMixin
 from .tiering import TieringMixin
 from .write_batcher import WriteBatcher
 
+
+#: Placements shared by every OSD of the process, keyed by what a
+#: placement depends on: the map's JSON less its epoch, addresses,
+#: profiles and auth generations.  The OSDs of a LocalCluster decode the
+#: same epochs, and most epochs (a boot, a profile, a pool flag) move no
+#: PG; each recomputing the scalar CRUSH descent of every PG it holds,
+#: for the old map and the new, would hold the interpreter lock for
+#: seconds an epoch and starve a monitor's handshakes.  A placement is a
+#: pure function of its key, so sharing one changes no result.
+_PLACEMENTS: "OrderedDict[str, _Placements]" = OrderedDict()
+_PLACEMENTS_MAX = 64
+_PLACEMENTS_LOCK = make_lock("osd::placements_index")
+
+
+class _Placements(dict):
+    """{(pool, ps): (up, up_primary, acting, acting_primary)} of one set
+    of placement inputs, with the lock that computes each PG once: the
+    OSDs meet a new pool's PGs together, and each computing them would
+    cost as much as not sharing."""
+
+    def __init__(self) -> None:
+        super().__init__()
+        self.lock = make_lock("osd::placements")
+
+
+def _placements_of(m: OSDMap) -> _Placements:
+    d = m.to_json()
+    for k in ("epoch", "osd_addrs", "ec_profiles", "auth_gens"):
+        d.pop(k, None)
+    key = json.dumps(d, sort_keys=True, default=str)
+    with _PLACEMENTS_LOCK:
+        got = _PLACEMENTS.get(key)
+        if got is None:
+            got = _PLACEMENTS[key] = _Placements()
+            if len(_PLACEMENTS) > _PLACEMENTS_MAX:
+                _PLACEMENTS.popitem(last=False)
+        else:
+            _PLACEMENTS.move_to_end(key)
+    return got
+
+
+def _placed(memo: tuple, pool_id: int, ps: int) -> tuple:
+    """A PG's placement from a (map, placements) memo, computed once."""
+    got = memo[1].get((pool_id, ps))
+    if got is None:
+        with memo[1].lock:
+            got = memo[1].get((pool_id, ps))
+            if got is None:
+                up, up_p, acting, acting_p = memo[0].pg_to_up_acting_osds(pool_id, ps)
+                got = memo[1][(pool_id, ps)] = (
+                    tuple(up), up_p, tuple(acting), acting_p)
+    return got
 
 
 class OSD(
@@ -179,8 +233,8 @@ class OSD(
         )
         self.mc = MonClient(cct, mon_addrs, name=f"{self.whoami}-monc")
         self.osdmap: OSDMap | None = None
-        #: (map, {(pool, ps): (acting, primary)}) — _acting's memo
-        self._acting_memo: tuple = (None, {})
+        #: (map, its shared placements) — _acting's memo
+        self._acting_memo: tuple = (None, _Placements())
         self.pgs: dict[str, PGState] = {}
         self._pgs_lock = make_lock("osd::pgs")
         self._lock = make_lock("osd::daemon")
@@ -688,10 +742,14 @@ class OSD(
             # up/acting changed starts a NEW interval at this epoch
             with self._pgs_lock:
                 pgs = list(self.pgs.values())
+            old_memo = self._acting_memo
+            if old_memo[0] is not old:
+                old_memo = (old, _placements_of(old))
+            new_memo = self._memo_for(m)
             for pg in pgs:
                 try:
-                    o = old.pg_to_up_acting_osds(pg.pool_id, pg.ps)
-                    n = m.pg_to_up_acting_osds(pg.pool_id, pg.ps)
+                    o = _placed(old_memo, pg.pool_id, pg.ps)
+                    n = _placed(new_memo, pg.pool_id, pg.ps)
                 except Exception as e:
                     # pool deleted between the two epochs (or a map too
                     # old to place against) — the PG is on its way out
@@ -717,7 +775,7 @@ class OSD(
                         pg.past_intervals.add(
                             first=pg.interval_start or old.epoch,
                             last=m.epoch - 1,
-                            up=o[0], acting=o[2], primary=o[3],
+                            up=list(o[0]), acting=list(o[2]), primary=o[3],
                             maybe_went_rw=went_rw,
                         )
                         pg.intervals_closed += 1
@@ -801,21 +859,20 @@ class OSD(
             self._codecs[name] = codec
         return codec
 
-    def _acting(self, pool_id: int, ps: int) -> tuple[list[int], int]:
-        """A PG's acting set and primary under this OSD's current map,
-        memoized per map object: an OSDMap the OSD holds is never
-        mutated (a new epoch arrives as a new object, ``_on_map``), and
-        the scalar CRUSH descent behind it runs on the host for every PG
-        on every tick."""
-        m = self.osdmap
+    def _memo_for(self, m: OSDMap) -> tuple:
         memo = self._acting_memo
         if memo[0] is not m:
-            memo = self._acting_memo = (m, {})
-        got = memo[1].get((pool_id, ps))
-        if got is None:
-            _up, _up_p, acting, acting_p = m.pg_to_up_acting_osds(pool_id, ps)
-            got = memo[1][(pool_id, ps)] = (tuple(acting), acting_p)
-        return list(got[0]), got[1]
+            memo = self._acting_memo = (m, _placements_of(m))
+        return memo
+
+    def _acting(self, pool_id: int, ps: int) -> tuple[list[int], int]:
+        """A PG's acting set and primary under this OSD's current map,
+        from the process's shared placements (``_placements_of``): an
+        OSDMap the OSD holds is never mutated (a new epoch arrives as a
+        new object, ``_on_map``), and the scalar CRUSH descent behind it
+        runs on the host for every PG on every tick."""
+        got = _placed(self._memo_for(self.osdmap), pool_id, ps)
+        return list(got[2]), got[3]
 
     def _pg(self, pool_id: int, ps: int) -> PGState:
         pgid = f"{pool_id}.{ps}"

@@ -24,6 +24,7 @@ from ..common.context import CephContext
 from ..common.device import resolve_device
 from ..crush import CrushWrapper, build_hierarchical_map
 from ..mon import MonMap, Monitor
+from ..mon.monitor import STATE_PEON
 from ..osd.daemon import OSD
 from ..osd.osdmap import OSDMap
 from ..client.rados import Rados
@@ -107,23 +108,34 @@ class LocalCluster:
             mon = Monitor(cct, nm, monmap, initial_osdmap=initial)
             self.mons[nm] = mon
             mon.start()
-        deadline = time.monotonic() + 15
-        while time.monotonic() < deadline and not any(
-            m.is_leader() for m in self.mons.values()
-        ):
-            time.sleep(0.05)
-        if not any(m.is_leader() for m in self.mons.values()):
-            raise TimeoutError("no mon leader")
+        # a first leader may be one of a partial quorum that a late mon
+        # re-elects: wait until every mon follows one leader whose map
+        # has committed, so no election meets the first command
+        self._wait("no settled mon quorum", self._quorum_settled)
         for i in range(self.n_osds):
             self._start_osd(i)
-        # all OSDs booted: wait until every address is registered
-        deadline = time.monotonic() + 15
-        while time.monotonic() < deadline:
-            m = self._leader().osdmon.osdmap
-            if m is not None and len(m.osd_addrs) >= self.n_osds:
-                break
-            time.sleep(0.1)
+        self._wait(f"not all {self.n_osds} OSDs up", self._osds_up)
         return self
+
+    @staticmethod
+    def _wait(what: str, cond) -> None:
+        deadline = time.monotonic() + 60
+        while not cond():
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"{what} after 60 s")
+            time.sleep(0.05)
+
+    def _quorum_settled(self) -> bool:
+        leaders = [m for m in self.mons.values() if m.is_leader()]
+        if len(leaders) != 1 or leaders[0].osdmon.osdmap is None:
+            return False
+        return all(m.state == STATE_PEON and m.leader_rank == leaders[0].rank
+                   for m in self.mons.values() if m is not leaders[0])
+
+    def _osds_up(self) -> bool:
+        maps = [m.osdmon.osdmap for m in self.mons.values() if m.is_leader()]
+        return bool(maps) and maps[0] is not None and all(
+            maps[0].is_up(i) and i in maps[0].osd_addrs for i in range(self.n_osds))
 
     def _cct(self, name: str) -> CephContext:
         # overrides go through the constructor: init-time features
@@ -139,10 +151,16 @@ class LocalCluster:
         return osd
 
     def _leader(self) -> Monitor:
-        for m in self.mons.values():
-            if m.is_leader():
-                return m
-        raise RuntimeError("no leader")
+        """The leader, once one is elected (an election takes a few
+        rounds of 0.3 s when the process is busy)."""
+        deadline = time.monotonic() + 30
+        while True:
+            for m in self.mons.values():
+                if m.is_leader():
+                    return m
+            if time.monotonic() > deadline:
+                raise RuntimeError("no leader")
+            time.sleep(0.05)
 
     @staticmethod
     def _stop_quietly(label: str, fn) -> None:

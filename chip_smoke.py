@@ -57,12 +57,12 @@ monitors and 12 OSDs (one per host, failure domain osd), sized after
 `rados bench`'s defaults (4 MiB objects, 16 concurrent ops) with pg_num
 64 (mon_target_pg_per_osd 100 x 12 OSDs over pool size 12, rounded down
 to a power of two): an RS(8,4) cauchy_good pool on plugin=torch takes
-32 writes and reads (every byte, and 8 objects' 12 shards against the
+64 writes and reads (every byte, and 8 objects' 12 shards against the
 numpy codec; every stripe through the write batcher, none inline); an
 OSD holding a data shard is killed and every object read whole and in
 a range inside the lost chunk (the read batcher's windowed decode);
 that OSD returns empty and the time to clean is the repair latency; a
-CLAY(8,4,d=11) pool's 8 objects are rebuilt on another OSD by the
+CLAY(8,4,d=11) pool's 16 objects are rebuilt on another OSD by the
 planned repair (d = 11 helpers' repair planes, one K2 apply each); a flipped byte in one
 stored shard is found and repaired by a deep scrub.
 
@@ -120,12 +120,11 @@ CPU_CHECK_XS = 1 << 16
 SCALAR_CHECK_XS = 512
 SCALAR_CHECK_PGS = 1024
 PROBE_ELEMENTS = 1 << 25
-#: the cluster phases, after `rados bench`'s defaults (-b 4M, -t 16); the
-#: object counts are cut from 64 and 16 to keep the phases near 90 s
-CLUSTER_OBJECTS = 32
+#: the cluster phases, after `rados bench`'s defaults (-b 4M, -t 16)
+CLUSTER_OBJECTS = 64
 CLUSTER_OBJECT_BYTES = 4 << 20
 CLUSTER_THREADS = 16
-CLUSTER_CLAY_OBJECTS = 8
+CLUSTER_CLAY_OBJECTS = 16
 
 
 def log(msg: str) -> None:
@@ -1206,7 +1205,11 @@ def cluster_slice(torch, dev, card: str, smi: str) -> list[dict]:
     conf = {"osd_subop_reply_timeout": 1.5, "osd_heartbeat_grace": 600.0,
             "osd_repair_cost_aware": False}
     c = LocalCluster(n_mons=3, n_osds=n_osds, conf_overrides=conf)  # device: cuda
+    t0 = time.perf_counter()
     c.start()
+    log(f"[25 start] 3 mons in one quorum (election epoch "
+        f"{c._leader().elector.epoch}) and {n_osds} OSDs up in "
+        f"{time.perf_counter() - t0:.1f} s")
     try:
         check(all(o.device.type == "cuda" for o in c.osds.values()), "an OSD is not on cuda")
         # every inline (non-batched) encode the OSDs record: none may run

@@ -559,3 +559,61 @@ def test_cluster_without_a_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         LocalCluster(n_mons=1, n_osds=1)
+
+
+def test_first_command_waits_out_an_election():
+    """A leader that calls an election keeps its rank and answers -307
+    naming itself until a leader is elected.  A command that meets it
+    waits and then runs; counting those instant NACKs as attempts gave
+    up with -110 within a second."""
+    import threading
+
+    from ceph_tpu_torch.mon.monitor import STATE_LEADER
+
+    c = LocalCluster(n_mons=3, n_osds=1, device="cpu").start()
+    try:
+        leader = c._leader()
+        leader.set_electing()
+
+        def elected():
+            with leader._state_lock:
+                leader.state = STATE_LEADER
+
+        timer = threading.Timer(1.5, elected)
+        timer.start()
+        t0 = time.monotonic()
+        rv, res = c.mon_command({
+            "prefix": "osd erasure-code-profile set", "name": "p",
+            "profile": {"plugin": "torch", "k": "2", "m": "1"}})
+        timer.join()
+        assert rv == 0, res
+        assert time.monotonic() - t0 >= 1.4
+    finally:
+        c.stop()
+
+
+def test_osds_share_placements_by_map_content():
+    """The OSDs of one process share placements keyed by the map's
+    placement inputs: a new epoch that moves no PG (here a profile) maps
+    to the same placements, a map with an OSD down to others, and every
+    shared placement equals the map's own pg_to_up_acting_osds."""
+    from ceph_tpu_torch.crush import CrushWrapper, build_hierarchical_map
+    from ceph_tpu_torch.osd import daemon
+    from ceph_tpu_torch.osd.osdmap import OSDMap
+
+    m = OSDMap(CrushWrapper(build_hierarchical_map(6, 2)), device="cpu")
+    m.create_pool(1, pg_num=16, size=3, crush_rule=0, name="rbd")
+    later = OSDMap.from_json(m.to_json(), device="cpu")
+    later.epoch += 1
+    later.ec_profiles["p"] = {"k": "2", "m": "1"}
+    down = OSDMap.from_json(m.to_json(), device="cpu")
+    down.mark_down(int(m.pg_to_up_acting_osds(1, 0)[0][0]))
+
+    shared = daemon._placements_of(m)
+    assert daemon._placements_of(later) is shared
+    assert daemon._placements_of(down) is not shared
+    for mm in (m, later, down):
+        memo = (mm, daemon._placements_of(mm))
+        for ps in range(16):
+            up, up_p, acting, acting_p = mm.pg_to_up_acting_osds(1, ps)
+            assert daemon._placed(memo, 1, ps) == (tuple(up), up_p, tuple(acting), acting_p)
