@@ -33,15 +33,20 @@ def _lanes(v, like: torch.Tensor) -> torch.Tensor:
     return torch.full(like.shape, v, dtype=torch.int32, device=like.device)
 
 
-def straw2_choose_b(cm, bucket_idx, x, r, cweights, position):
+def straw2_choose_b(cm, bucket_idx, x, r, cweights, position, cmagic=None):
     """bucket_straw2_choose over lanes: bucket_idx/x/r/position are [B];
     returns the chosen item per lane ([B] int32, ITEM_NONE for empty
     buckets).  `cweights` is a choose_args weight-set [P, n_idx, S] or
-    None (the map's own weights)."""
-    weights = cm.weights if cweights is None else cweights.reshape(-1, cm.items.shape[1])
+    None (the map's own weights); `cmagic` is its magic
+    (``cm.choose_args_magic``).  The map's own magic goes with its own
+    weights."""
+    if cweights is None:
+        weights, magic = cm.weights, (cm.magic_m, cm.magic_ka)
+    else:
+        weights, magic = cweights.reshape(-1, cm.items.shape[1]), cmagic
     return crush_kernels.straw2_choose(
         cm.items, weights, cm.sizes, bucket_idx.to(torch.int32),
-        x, _lanes(r, x), _lanes(position, x))
+        x, _lanes(r, x), _lanes(position, x), magic=magic)
 
 
 def item_type_b(cm, item):
@@ -69,16 +74,19 @@ def is_out_b(weightvec, item, x):
 
 
 class I64Engine:
-    """The draw engine: int64 crush_ln and div64 draws (K3), tensor row
-    gathers for types and reweights."""
+    """The draw engine: straw2 draws by K3 (int64 crush_ln and div64,
+    the divide done on the card by each weight's magic reciprocal), tensor
+    row gathers for types and reweights."""
 
-    def __init__(self, cm, weightvec, cweights):
+    def __init__(self, cm, weightvec, cweights, cmagic=None):
         self.cm = cm
         self.weightvec = weightvec
         self.cweights = cweights
+        self.cmagic = cmagic
 
     def choose(self, bucket_idx, x, r, position):
-        return straw2_choose_b(self.cm, bucket_idx, x, r, self.cweights, position)
+        return straw2_choose_b(self.cm, bucket_idx, x, r, self.cweights, position,
+                               self.cmagic)
 
     def item_type(self, item):
         return item_type_b(self.cm, item)

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from ..common.device import resolve_device
+from ..ops import crush_kernels
 from .batched import I64Engine, choose_firstn_b, choose_indep_b
 from .types import ITEM_NONE, CrushMap, RuleOp
 
@@ -75,7 +76,9 @@ def validate_choose_args(
 
 class CompiledCrushMap:
     """Dense-tensor form of a CrushMap on one device (``cuda`` unless
-    given ``device="cpu"``)."""
+    given ``device="cpu"``).  ``magic_m`` and ``magic_ka`` are the
+    weights' exact magic reciprocals, K3's draw constants
+    (``crush_kernels.straw2_magic``), built with the map."""
 
     def __init__(self, cmap: CrushMap, device=None):
         self.cmap = cmap
@@ -106,9 +109,11 @@ class CompiledCrushMap:
         self.weights = torch.from_numpy(weights).to(self.device)
         self.sizes = torch.from_numpy(sizes).to(self.device)
         self.types = torch.from_numpy(types).to(self.device)
+        self.magic_m, self.magic_ka = (torch.from_numpy(a).to(self.device)
+                                       for a in crush_kernels.straw2_magic(weights))
         self.n_idx = n_idx
         self.max_size = max_size
-        self._choose_args_cache: dict[str, torch.Tensor] = {}
+        self._choose_args_cache: dict[str, tuple] = {}
 
     def choose_args_arrays(self, name: str) -> torch.Tensor:
         """Dense [positions, n_idx, max_size] int64 weights for a named
@@ -116,6 +121,14 @@ class CompiledCrushMap:
         without an entry keep their own weights; buckets with fewer
         weight_set rows than the max are clamped to their last row — the
         get_choose_arg_weights position clamp, applied at build time."""
+        return self._choose_args(name)[0]
+
+    def choose_args_magic(self, name: str) -> tuple[torch.Tensor, torch.Tensor]:
+        """``straw2_magic`` of the weight-set's [positions * n_idx,
+        max_size] weights, built with them."""
+        return self._choose_args(name)[1]
+
+    def _choose_args(self, name: str):
         cached = self._choose_args_cache.get(name)
         if cached is not None:
             return cached
@@ -129,8 +142,10 @@ class CompiledCrushMap:
             for p in range(P):
                 dense[p, i, :size] = ws[min(p, len(ws) - 1)]
         arr = torch.from_numpy(dense).to(self.device)
-        self._choose_args_cache[name] = arr
-        return arr
+        magic = tuple(torch.from_numpy(a).to(self.device)
+                      for a in crush_kernels.straw2_magic(dense.reshape(-1, dense.shape[-1])))
+        self._choose_args_cache[name] = (arr, magic)
+        return arr, magic
 
 
 def compile_plan(cm: CompiledCrushMap, rule_id: int, numrep: int) -> list[dict]:
@@ -288,10 +303,13 @@ def crush_do_rule_batch(
             "the batch mapper takes straw2 maps only; this map holds legacy "
             "buckets (uniform/list/tree/straw): map it with CrushWrapper.do_rule")
     plan = compile_plan(cm, rule_id, numrep)
-    cweights = None if choose_args is None else cm.choose_args_arrays(choose_args)
+    cweights = cmagic = None
+    if choose_args is not None:
+        cweights = cm.choose_args_arrays(choose_args)
+        cmagic = cm.choose_args_magic(choose_args)
     dev = cm.device
     weightvec = torch.as_tensor(np.asarray(weightvec, dtype=np.int64)).to(dev)
-    eng = I64Engine(cm, weightvec, cweights)
+    eng = I64Engine(cm, weightvec, cweights, cmagic)
     if isinstance(xs, torch.Tensor):
         xs_t = xs.to(device=dev, dtype=torch.int32)
     else:

@@ -16,7 +16,11 @@ of perf_runs/.  The CUDA kernels live in csrc/crush_straw2.cu:
 for each lane it picks ``bucket_straw2_choose(bucket, x, r)``, the first
 strict maximum of ``div64(crush_ln(hash3(x, item, r) & 0xffff) - 2^48,
 weight)`` over the bucket's slots.  It is bound by integer operations
-(the hash, crush_ln and a 64-bit divide per slot), not by bytes.
+(the hash, crush_ln and the draw per slot), not by bytes.  The kernel
+draws by each weight's exact magic reciprocal (``straw2_magic``, made
+once per map by ``CompiledCrushMap``) instead of dividing, with
+``threads_per_lane`` threads sharing a lane below a wave; the plain
+version keeps the truncating divide.
 ``ln_scores`` computes crush_ln of every (x, item, r), the function the
 TPU kernel computed; ``crush_ln_stream`` is the probe that times crush_ln's
 two forms, computed from the small tables (``"compute"``) or looked up in
@@ -37,6 +41,7 @@ import torch
 
 from ..crush.hash import crush_hash32_3
 from ..crush.ln_table import CRUSH_LN_TABLE, LL_TBL, LN_BIAS, RH_LH_TBL
+from ..crush.magic_div import join_limbs, magic_tables
 from ..crush.types import ITEM_NONE
 from .nvcc import NvccLibrary
 
@@ -44,6 +49,9 @@ KERNELS = ("crush_straw2_k3", "crush_ln_scores_k3",
            "crush_ln_stream_compute", "crush_ln_stream_table")
 #: launches per kernel since the last reset_launch_counts()
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)
+#: magic tables ``straw2_choose`` built from its weights because the
+#: caller gave none, since the last reset_launch_counts()
+MAGIC_BUILDS = 0
 
 #: crush_ln's two forms in the probe (csrc LnForm): computed from
 #: RH_LH_TBL/LL_TBL in shared memory, or one load from CRUSH_LN_TABLE
@@ -55,10 +63,20 @@ S64_MIN = -(1 << 63)
 #: the card so a 10M-lane call needs no [10M, 128] intermediates
 _PLAIN_CHUNK = {"cpu": 1 << 19, "cuda": 1 << 25}
 
+#: the packed magic word's fields (csrc KA_*): k in bits 0-7, a in bit 8,
+#: bit 9 set for a slot with no weight
+KA_INC_SHIFT = 8
+KA_NO_WEIGHT = 1 << 9
+#: resident threads per SM on Hopper, and K3's most threads per lane
+THREADS_PER_SM = 2048
+MAX_THREADS_PER_LANE = 32
+
 
 def reset_launch_counts() -> None:
+    global MAGIC_BUILDS
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    MAGIC_BUILDS = 0
 
 
 # ---------------------------------------------------------------- build
@@ -67,7 +85,7 @@ def reset_launch_counts() -> None:
 def _bind(lib: ctypes.CDLL) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.crush_straw2_choose_launch.argtypes = [
-        p, p, p, i, i, i, p, p, p, p, ll, p, p, p, p, p]
+        p, p, p, p, i, i, i, p, p, p, p, ll, i, p, p, p, p, p]
     lib.crush_straw2_choose_launch.restype = i
     lib.crush_ln_scores_launch.argtypes = [p, p, p, i, i, p, p, p, p, p]
     lib.crush_ln_scores_launch.restype = i
@@ -95,6 +113,43 @@ def ln_tables(device: torch.device) -> tuple[torch.Tensor, torch.Tensor, torch.T
         _TABLES[key] = tuple(torch.from_numpy(np.ascontiguousarray(t)).to(device)
                              for t in (RH_LH_TBL, LL_TBL, CRUSH_LN_TABLE))
     return _TABLES[key]
+
+
+def straw2_magic(weights: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """K3's draw constants for a [..., S] int64 weight table: M as int64
+    bits and the packed (k, a) word as int32, both shaped like `weights`
+    (crush/magic_div.py).  A weight <= 0 gets M = 0 and KA_NO_WEIGHT."""
+    w = np.asarray(weights, dtype=np.int64)
+    t = magic_tables(w)
+    ka = t["k"] | (t["a"] << KA_INC_SHIFT)
+    ka = np.where(w > 0, ka, ka | KA_NO_WEIGHT).astype(np.int32)
+    return join_limbs(t["m_limbs"]), ka
+
+
+def _pow2_floor(n: int) -> int:
+    return 1 << (n.bit_length() - 1) if n > 0 else 0
+
+
+def threads_per_lane(B: int, S: int, sms: int) -> int:
+    """K3's threads per lane: the power of two, from 1 to
+    min(32, S rounded up to a power of two), that brings B lanes closest
+    to one wave of resident threads (sms x 2048) without passing it; 1
+    once B alone fills the wave."""
+    cap = min(MAX_THREADS_PER_LANE, 1 << max(S - 1, 0).bit_length())
+    return max(1, min(cap, _pow2_floor(sms * THREADS_PER_SM // max(B, 1))))
+
+
+_SMS: dict[int, int] = {}
+
+
+def sm_count(device: torch.device) -> int:
+    """The card's SM count, read once per device."""
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    if index not in _SMS:
+        _SMS[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return _SMS[index]
 
 
 def _launch(name: str, fn, *args) -> None:
@@ -185,7 +240,9 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int,
 def straw2_choose(items_tbl: torch.Tensor, weights_tbl: torch.Tensor,
                   sizes: torch.Tensor, bucket_idx: torch.Tensor,
                   x: torch.Tensor, r: torch.Tensor,
-                  position: torch.Tensor) -> torch.Tensor:
+                  position: torch.Tensor, *,
+                  magic: tuple[torch.Tensor, torch.Tensor] | None = None,
+                  threads: int | None = None) -> torch.Tensor:
     """bucket_straw2_choose for each of B lanes: [B] int32 chosen items.
 
     items_tbl [n_idx, S] int32 and sizes [n_idx] int32 are the compiled
@@ -195,7 +252,13 @@ def straw2_choose(items_tbl: torch.Tensor, weights_tbl: torch.Tensor,
     min(position[j], P-1) * n_idx + bucket).  bucket_idx, x, r and position
     are [B] int32.  An empty bucket gives ITEM_NONE.
 
+    `magic` is ``straw2_magic(weights_tbl)`` on the tensors' device
+    ([P * n_idx, S] int64 and int32), which the mapper builds once per map;
+    without it a CUDA call builds it here and counts it in MAGIC_BUILDS.
+    `threads` overrides ``threads_per_lane`` (a power of two, 1 to 32).
+
     CUDA tensors: one K3 launch.  CPU tensors: ``straw2_choose_plain``."""
+    global MAGIC_BUILDS
     dev = items_tbl.device
     _check("items_tbl", items_tbl, torch.int32, 2, dev)
     n_idx, S = items_tbl.shape
@@ -211,18 +274,32 @@ def straw2_choose(items_tbl: torch.Tensor, weights_tbl: torch.Tensor,
     B = bucket_idx.shape[0]
     if any(t.shape[0] != B for t in (x, r, position)):
         raise ValueError(f"x, r and position must have bucket_idx's {B} lanes")
+    if magic is not None:
+        for name, t, dtype in (("magic M", magic[0], torch.int64),
+                               ("magic ka", magic[1], torch.int32)):
+            _check(name, t, dtype, 2, dev)
+            if t.shape != weights_tbl.shape:
+                raise ValueError(f"{name} {tuple(t.shape)} does not fit weights_tbl "
+                                 f"{tuple(weights_tbl.shape)}")
+    if threads is not None and (threads not in (1, 2, 4, 8, 16, 32)):
+        raise ValueError(f"threads {threads}: want a power of two from 1 to 32")
     if dev.type == "cpu":
         return straw2_choose_plain(items_tbl, weights_tbl, sizes, bucket_idx, x, r, position)
     out = torch.empty((B,), dtype=torch.int32, device=dev)
     if B == 0:
         return out
+    if magic is None:
+        magic = tuple(torch.from_numpy(a).to(dev)
+                      for a in straw2_magic(weights_tbl.cpu().numpy()))
+        MAGIC_BUILDS += 1
+    T = threads or threads_per_lane(B, S, sm_count(dev))
     rh_lh, ll, full = ln_tables(dev)
     with torch.cuda.device(dev):
         _launch("crush_straw2_k3", library().crush_straw2_choose_launch,
-                items_tbl.data_ptr(), weights_tbl.data_ptr(),
+                items_tbl.data_ptr(), magic[0].data_ptr(), magic[1].data_ptr(),
                 sizes.data_ptr(), n_idx, S, weights_tbl.shape[0] // n_idx,
                 bucket_idx.data_ptr(), x.data_ptr(), r.data_ptr(), position.data_ptr(),
-                B, rh_lh.data_ptr(), ll.data_ptr(), full.data_ptr(), out.data_ptr())
+                B, T, rh_lh.data_ptr(), ll.data_ptr(), full.data_ptr(), out.data_ptr())
     return out
 
 

@@ -20,7 +20,10 @@ result compared byte for byte.
 
 The placement path (phases 10-17), on the 1024-OSD map of 128 hosts x 8
 OSDs: the crush_ln probe in both forms over 2^25 values; K3 and
-ln_scores against their plain versions; then through
+ln_scores against their plain versions, and K3's edge cases
+(K3_EDGE_CASES: lane counts across its thread choices, narrow and odd
+buckets, ties, weights 1 to 0xFFFFFFFF and 0, weight-sets) at every
+thread count a lane; then through
 CrushWrapper.do_rule_batch, the 10M-object replicated remap before and
 after host 17 goes out (minimal movement, no out OSD), an RS(8,4) pool's
 indep placement, a balancer weight-set, a 16-rack map with a
@@ -67,11 +70,16 @@ planned repair (d = 11 helpers' repair planes, one K2 apply each); a flipped byt
 stored shard is found and repaired by a deep scrub.
 
 For each path the launch counters are set to 0 just before it and read
-just after, and every kernel of the path must have launched.  K3 is
-timed over the xs one pass of the mapper takes, and its bound counts the
-INT32-pipe instructions of its slot loop in the SASS of the library the
-run built (cuobjdump, beside nvcc); it is timed again at map_pool's
-launch shapes, the root and host draws over each pool's seeds.  The last
+just after, and every kernel of the path must have launched; K3's draws
+on the placement and OSDMap paths must use the magic reciprocals their
+compiled maps carry (no build in the wrapper).  K3 is timed over the xs
+one pass of the mapper takes, and its bound counts one trip of its slot
+loop a slot walked, in the SASS of the library the run built (cuobjdump,
+beside nvcc; the kernel must call no subroutine); its group reduction's
+trips are logged beside it as overhead; it is timed again at map_pool's launch shapes, the root
+and host draws over each pool's seeds.  Every kernel time is the
+device's alone (the stream is held until the timed calls are
+enqueued); the wrappers' host time a call is logged apart.  The last
 lines are the card, one ``kernels`` JSON object (each kernel's time
 beside its bound and its plain version's time; K2's also beside its
 int8 tensor-core floor, at the CLAY(8,4,d=11) repair and at
@@ -99,6 +107,10 @@ from pathlib import Path
 import numpy as np
 
 SEED = 20261017
+#: GPU clock cycles torch.cuda._sleep spins for a millisecond's hold (at
+#: the H100's 1980 MHz boost, or longer at a lower clock), and the longest hold
+SLEEP_CYCLES_PER_MS = 2_000_000
+MAX_HOLD_MS = 3000.0
 #: H100 SXM peak HBM bytes/s (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
 OBJECTS = 256
@@ -109,6 +121,12 @@ INT8_TC_OPS_PER_S = 1.979e15
 #: H100 SXM INT32 operations/s: 132 SMs x 64 INT32 lanes (Hopper white
 #: paper) at the card's 1980 MHz boost clock
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
+#: integer multiply-adds (IMAD, on the FMA pipe) a second: 64 a clock an
+#: SM on compute capability 9.0 (CUDA C++ Programming Guide, throughput
+#: table), and instructions a second: four warp schedulers an SM, each
+#: issuing one warp instruction (32 threads) a clock
+IMAD_OPS_PER_S = 132 * 64 * 1.98e9
+ISSUE_PER_S = 132 * 4 * 32 * 1.98e9
 #: opcodes that issue to the INT32 pipe; IMAD issues to the FMA pipe
 INT32_PIPE = {"IADD3", "LOP3", "SHF", "ISETP", "SEL", "VIADD", "FLO", "LEA", "IABS", "PRMT"}
 #: BASELINE config 5: the remap of 10M objects over a 1024-OSD map
@@ -142,18 +160,39 @@ def rand_bytes(torch, shape, seed: int, device):
     return torch.randint(0, 256, shape, dtype=torch.uint8, device=device, generator=g)
 
 
-def time_ms(torch, fn, iters: int, warmup: int = 2) -> float:
-    """Median time of one call, from CUDA events around each call."""
+def time_ms(torch, fn, iters: int, warmup: int = 2, label: str | None = None
+            ) -> tuple[float, float]:
+    """(device ms, host ms) of one call: the median over `iters` calls of
+    the CUDA events around each call, and of time.perf_counter around it.
+
+    A torch.cuda._sleep ahead of the first event holds the stream until
+    the host has enqueued every timed call (twice the last warm-up's host
+    time each, and a millisecond), so the events bracket the device's work
+    alone and not the wrapper's host work; the host time is on its own
+    line when `label` is given."""
+    host_s = 0.0
     for _ in range(warmup):
+        t0 = time.perf_counter()
         fn()
+        host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
     ev = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
           for _ in range(iters)]
+    hold_ms = min(2 * iters * host_s * 1e3 + 1.0, MAX_HOLD_MS)
+    torch.cuda._sleep(int(hold_ms * SLEEP_CYCLES_PER_MS))
+    host = []
     for a, b in ev:
+        t0 = time.perf_counter()
         a.record()
         fn()
         b.record()
+        host.append(time.perf_counter() - t0)
     torch.cuda.synchronize()
-    return float(np.median([a.elapsed_time(b) for a, b in ev]))
+    dev_ms = float(np.median([a.elapsed_time(b) for a, b in ev]))
+    host_ms = float(np.median(host)) * 1e3
+    if label:
+        log(f"    host time of {label}: {host_ms:.4f} ms per call (device {dev_ms:.4f} ms)")
+    return dev_ms, host_ms
 
 
 def bound_ms(rows: int, n: int, L: int) -> float:
@@ -183,6 +222,30 @@ def kernel_entry(name: str, replaces: str, shape: str, err: int, ms: float,
         "library_ms": library_ms, "shape": shape, "card": card, "nvidia_smi": smi,
         **extra,
     }
+
+
+def k3_entry(torch, ck, args, magic, sass: dict, map_bytes: int, err: int, shape: str,
+             card: str, smi: str, **extra) -> dict:
+    """K3's row of the ``kernels`` line at one launch shape: its device
+    and host time (with the map's magic, as the mapper calls it), the
+    plain version's, T, and its bound by this build's SASS.  The group
+    reduction's operations are kernel overhead, not part of the bound;
+    their time is logged beside the row (``reduce_ms``, not printed in
+    the line)."""
+    lanes, S = args[3].shape[0], args[0].shape[1]
+    T = ck.threads_per_lane(lanes, S, ck.sm_count(args[0].device))
+    slots = int(args[2][args[3].long().clamp(0, args[0].shape[0] - 1)].clamp(max=S).sum())
+    ms, host_ms = time_ms(torch, lambda: ck.straw2_choose(*args, magic=magic), iters=10,
+                          label=f"straw2_choose at {shape}")
+    plain_ms, _ = time_ms(torch, lambda: ck.straw2_choose_plain(*args), iters=2, warmup=1)
+    bytes_ms = (16 * lanes + map_bytes) / HBM_BYTES_PER_S * 1e3
+    entry = kernel_entry(
+        "crush_straw2_k3", "ceph_tpu/ops/pallas_crush.py:176",
+        f"{shape} ({slots} slots walked)", err, ms, plain_ms, k3_bound_ms(sass, slots),
+        bytes_ms, None, card, smi, host_ms=host_ms, threads_per_lane=T,
+        sass_per_slot=sass["straw2_choose_kernel"],
+        sass_per_reduce_trip=sass["straw2_reduce"], **extra)
+    return entry, k3_reduce_ms(sass, lanes, T)
 
 
 def max_err(torch, got, want) -> int:
@@ -226,21 +289,28 @@ def between(code, lo: int, hi: int) -> list[str]:
     return [ins for addr, ins in code if lo <= addr <= hi]
 
 
-def k3_slot_path(code) -> list[str]:
-    """One slot of straw2_choose_kernel's loop as executed: the loop head
-    to the call of the 64-bit divide subroutine, the subroutine to its
-    RET, and the loop tail.  The divide's 32-bit fast path never runs (the
-    dividend crush_ln(u) - 2^48 is negative), so it is skipped."""
-    call = next(a for a, i in code if "CALL" in i)
-    sub = branch_target(next(i for a, i in code if a == call))
-    ret = next(a for a, i in code if a > sub and opcode(i) == "RET")
-    head, back = min(((branch_target(i), a) for a, i in code  # the innermost loop
-                      if opcode(i) == "BRA" and branch_target(i) < call < a),
-                     key=lambda t: t[1] - t[0])
-    after = next(a for a, i in code if a > call and opcode(i) == "BRA")
-    tail = branch_target(next(i for a, i in code if a == after))
-    return (between(code, head, call) + between(code, sub, ret)
-            + between(code, call + 1, after) + between(code, tail, back))
+def innermost_loops(code) -> list[tuple[int, int]]:
+    """(head, back edge) of every loop that holds no other loop."""
+    loops = [(branch_target(i), a) for a, i in code
+             if opcode(i) == "BRA" and branch_target(i) < a]
+    return [(h, b) for h, b in loops
+            if not any(h <= h2 and b2 < b for h2, b2 in loops if (h2, b2) != (h, b))]
+
+
+def k3_paths(code) -> tuple[list[str], list[str]]:
+    """straw2_choose_kernel's two inner loops: one trip of a thread's
+    slot loop (the longest inner loop without SHFL: hash, crush_ln load,
+    the magic multiply and shift, the strict minimum) and one trip of its
+    group's reduction (the inner loop with SHFL).  The draw has no divide,
+    so the kernel must call no subroutine."""
+    calls = [i for _, i in code if opcode(i) == "CALL"]
+    check(not calls, f"straw2_choose_kernel calls a subroutine: {calls}")
+    loops = [between(code, h, b) for h, b in innermost_loops(code)]
+    reduce = [ln for ln in loops if any(opcode(i) == "SHFL" for i in ln)]
+    slot = max((ln for ln in loops if ln not in reduce), key=len, default=[])
+    check(len(reduce) == 1, f"straw2_choose_kernel has {len(reduce)} shuffle loops, want 1")
+    check(any(opcode(i) == "LDG" for i in slot), "K3's slot loop holds no load")
+    return slot, reduce[0]
 
 
 def loop_path(code) -> list[str]:
@@ -251,25 +321,56 @@ def loop_path(code) -> list[str]:
     return between(code, head, back)
 
 
-def int32_counts(library: Path) -> dict[str, int]:
-    """INT32-pipe instructions per slot K3 walks and per element of
-    ln_scores, counted in the SASS of `library` (cuobjdump, beside nvcc)."""
+def pipe_counts(library: Path) -> dict[str, dict[str, int]]:
+    """Instructions on the INT32 pipe ("int32"), IMADs on the FMA pipe
+    ("imad") and all instructions ("all") per slot K3 walks
+    ("straw2_choose_kernel"), per trip of its group reduction
+    ("straw2_reduce") and per element of ln_scores, counted in the SASS of
+    `library` (cuobjdump, beside nvcc)."""
     from ceph_tpu_torch.ops.nvcc import nvcc
 
     sass = subprocess.run([str(Path(nvcc()).parent / "cuobjdump"), "-sass", str(library)],
                           capture_output=True, text=True, check=True).stdout
     counts = {}
     for name, code in sass_functions(sass).items():
-        for kernel, path_of in (("straw2_choose_kernel", k3_slot_path),
-                                ("ln_scores_kernel", loop_path)):
-            if kernel in name:
-                ops = collections.Counter(opcode(i) for i in path_of(code))
-                counts[kernel] = sum(n for op, n in ops.items() if op in INT32_PIPE)
-                log(f"    sass {kernel}: {sum(ops.values())} instructions per trip, "
-                    f"{counts[kernel]} on the INT32 pipe; {dict(ops.most_common())}")
-    check(set(counts) == {"straw2_choose_kernel", "ln_scores_kernel"},
+        if "straw2_choose_kernel" in name:
+            paths = dict(zip(("straw2_choose_kernel", "straw2_reduce"), k3_paths(code)))
+        elif "ln_scores_kernel" in name:
+            paths = {"ln_scores_kernel": loop_path(code)}
+        else:
+            continue
+        for kernel, path in paths.items():
+            ops = collections.Counter(opcode(i) for i in path)
+            c = counts[kernel] = {
+                "int32": sum(n for op, n in ops.items() if op in INT32_PIPE),
+                "imad": ops["IMAD"], "all": sum(ops.values())}
+            log(f"    sass {kernel}: {c['all']} instructions per trip, {c['int32']} on the "
+                f"INT32 pipe, {c['imad']} IMAD; {dict(ops.most_common())}")
+    check(set(counts) == {"straw2_choose_kernel", "straw2_reduce", "ln_scores_kernel"},
           f"K3's kernels not found in the SASS of {library.name}: {sorted(counts)}")
     return counts
+
+
+def ops_ms(*terms: tuple[int, dict[str, int]]) -> float:
+    """Least time (ms) for sum(n x path) over (n, path counts) terms: the
+    slowest of the INT32 pipe, the FMA pipe's IMADs and the issue slots."""
+    total = {k: sum(n * c[k] for n, c in terms) for k in ("int32", "imad", "all")}
+    return max(total["int32"] / INT32_OPS_PER_S, total["imad"] / IMAD_OPS_PER_S,
+               total["all"] / ISSUE_PER_S) * 1e3
+
+
+def k3_bound_ms(counts: dict, slots: int) -> float:
+    """K3's operation bound (ms) for a launch that walks `slots` slots: one
+    trip of this build's slot loop a slot, which is what a serial strict
+    scan of the lane's slots needs."""
+    return ops_ms((slots, counts["straw2_choose_kernel"]))
+
+
+def k3_reduce_ms(counts: dict, lanes: int, T: int) -> float:
+    """The least time (ms) of K3's group reduction over `lanes` lanes at T
+    threads a lane (log2 T shuffle trips on each of a lane's T threads):
+    overhead of the T-thread layout, which the bound does not count."""
+    return ops_ms((lanes * T * (T.bit_length() - 1), counts["straw2_reduce"]))
 
 
 def imma_count(library: Path) -> int:
@@ -286,6 +387,73 @@ def imma_count(library: Path) -> int:
     return ops["IMMA"]
 
 
+#: K3's edge cases, (name, S, n_idx, P, B): B across K3's thread choices
+#: at the root's S = 128, narrow and odd S, and choose_args weight-sets of
+#: P = 3 rows a bucket; each runs at the host's T and at every T
+K3_EDGE_CASES = (
+    ("S128 B1", 128, 9, 1, 1), ("S128 B31", 128, 9, 1, 31),
+    ("S128 B8192", 128, 9, 1, 8192), ("S128 B32768", 128, 9, 1, 32768),
+    ("S1", 1, 9, 1, 4097), ("S8", 8, 9, 1, 4097), ("S37", 37, 9, 1, 4097),
+    ("choose_args P3 S8", 8, 9, 3, 3001), ("choose_args P3 S128", 128, 9, 3, 777),
+)
+#: weights every edge table mixes in, 0 among them
+K3_EDGE_WEIGHTS = (1, 1 << 16, 1 << 31, 0xFFFFFFFF, 0)
+K3_THREADS = (1, 2, 4, 8, 16, 32)
+
+
+def k3_edge_case(S: int, n_idx: int, P: int, B: int, seed: int) -> list[np.ndarray]:
+    """straw2_choose's arguments (items, weights, sizes, bucket_idx, x, r,
+    position) for one edge table of n_idx >= 5 buckets: bucket 0 full,
+    bucket 1 with every weight 0, bucket 2 empty, bucket 3 holding one
+    item twice at equal weights, bucket 4 all at 0xFFFFFFFF (equal
+    quotients of different items are common there), the others ragged;
+    weights half from K3_EDGE_WEIGHTS, half random up to 2^32.  Lanes
+    take every bucket, and bucket indices and positions past either end
+    (the kernel clamps them)."""
+    rng = np.random.default_rng(seed)
+    none = -0x7FFFFFFE  # ITEM_NONE
+    sizes = rng.integers(1, S + 1, n_idx).astype(np.int32)
+    sizes[0], sizes[2] = S, 0
+    items = np.full((n_idx, S), none, np.int32)
+    weights = np.zeros((P * n_idx, S), np.int64)
+    edge = np.array(K3_EDGE_WEIGHTS, np.int64)
+    for b in range(n_idx):
+        n = int(sizes[b])
+        items[b, :n] = rng.choice(np.arange(-4096, 4096), n, replace=False)
+        for p in range(P):
+            row = np.where(rng.random(n) < 0.5, rng.choice(edge, n),
+                           rng.integers(1, 1 << 32, n))
+            weights[p * n_idx + b, :n] = 0 if b == 1 else 0xFFFFFFFF if b == 4 else row
+    if sizes[3] >= 2:
+        items[3, 1] = items[3, 0]
+        weights[3::n_idx, 1] = weights[3::n_idx, 0] = 1 << 16
+    lanes = [rng.integers(-1, n_idx + 1, B), rng.integers(-(1 << 31), 1 << 31, B),
+             rng.integers(0, 200, B), rng.integers(-1, P + 2, B)]
+    return [items, weights, sizes] + [a.astype(np.int32) for a in lanes]
+
+
+def k3_edges(torch, dev) -> None:
+    """Phase 11's K3 edge cases on the card: every case of K3_EDGE_CASES at
+    the host's T and at each T of K3_THREADS, byte-equal to
+    straw2_choose_plain."""
+    from ceph_tpu_torch.ops import crush_kernels as ck
+
+    sms = ck.sm_count(dev)
+    for i, (name, S, n_idx, P, B) in enumerate(K3_EDGE_CASES):
+        args = [torch.from_numpy(a).to(dev) for a in k3_edge_case(S, n_idx, P, B, SEED + i)]
+        magic = tuple(torch.from_numpy(a).to(dev) for a in ck.straw2_magic(args[1].cpu().numpy()))
+        want = ck.straw2_choose_plain(*args)
+        host_T = ck.threads_per_lane(B, S, sms)
+        for T in (None,) + K3_THREADS:
+            got = ck.straw2_choose(*args, magic=magic, threads=T)
+            torch.cuda.synchronize()
+            err = max_err(torch, got, want)
+            check(err == 0, f"K3 edge case {name} at T={T or host_T} differs from the plain "
+                            f"version (err {err})")
+        log(f"[11 K3 edges] {name} (S {S}, {n_idx} buckets, P {P}, B {B}): host T {host_T}; "
+            f"equal to the plain version at T = {host_T} and {K3_THREADS}")
+
+
 def crush_slice(torch, dev, card: str, smi: str) -> list[dict]:
     """Phases 10-17: the placement path on the card (see the docstring)."""
     from ceph_tpu_torch.crush import (
@@ -296,7 +464,7 @@ def crush_slice(torch, dev, card: str, smi: str) -> list[dict]:
     from ceph_tpu_torch.tools import crushtool
 
     entries = []
-    int32 = int32_counts(ck.LIBRARY.path())
+    sass = pipe_counts(ck.LIBRARY.path())
     g = torch.Generator(device=dev)
 
     def rand(lo: int, hi: int, n: int, seed: int):
@@ -309,8 +477,8 @@ def crush_slice(torch, dev, card: str, smi: str) -> list[dict]:
     table = ck.ln_tables(dev)[2]
     library = torch.index_select(table, 0, u)
     check(torch.equal(library, plain), "index_select differs from the plain version")
-    plain_ms = time_ms(torch, lambda: ck.crush_ln_stream_plain(u), iters=5)
-    library_ms = time_ms(torch, lambda: torch.index_select(table, 0, u), iters=20)
+    plain_ms, _ = time_ms(torch, lambda: ck.crush_ln_stream_plain(u), iters=5)
+    library_ms, _ = time_ms(torch, lambda: torch.index_select(table, 0, u), iters=20)
     bytes_ms = PROBE_ELEMENTS * 12 / HBM_BYTES_PER_S * 1e3
     probe_ms = {}
     replaces = {"compute": "perf_runs/probe_flat.py:48", "table": "perf_runs/probe_gather.py:33"}
@@ -319,10 +487,11 @@ def crush_slice(torch, dev, card: str, smi: str) -> list[dict]:
         torch.cuda.synchronize()
         err = max_err(torch, got, plain)
         check(err == 0, f"crush_ln_stream {f} differs from CRUSH_LN_TABLE[u]")
-        probe_ms[f] = time_ms(torch, lambda: ck.crush_ln_stream(u, f), iters=20)
+        probe_ms[f], host_ms = time_ms(torch, lambda: ck.crush_ln_stream(u, f), iters=20,
+                                       label=f"crush_ln_stream {f}")
         entries.append(kernel_entry(
             f"crush_ln_stream_{f}", replaces[f], f"u [{PROBE_ELEMENTS}] int32", err,
-            probe_ms[f], plain_ms, 0.0, bytes_ms, library_ms, card, smi))
+            probe_ms[f], plain_ms, 0.0, bytes_ms, library_ms, card, smi, host_ms=host_ms))
         log(f"[10 probe] crush_ln {f}: bytes equal over {PROBE_ELEMENTS} u, {probe_ms[f]:.4f} ms, "
             f"bound {bytes_ms:.4f} ms by bytes, plain {plain_ms:.3f} ms, "
             f"index_select {library_ms:.4f} ms")
@@ -339,14 +508,17 @@ def crush_slice(torch, dev, card: str, smi: str) -> list[dict]:
     got = ck.ln_scores(x, items, r)
     err = max_err(torch, got, ck.ln_scores_plain(x, items, r))
     check(err == 0, "ln_scores differs from its plain version")
-    ms = time_ms(torch, lambda: ck.ln_scores(x, items, r), iters=20)
-    ls_plain_ms = time_ms(torch, lambda: ck.ln_scores_plain(x, items, r), iters=3, warmup=1)
+    ms, host_ms = time_ms(torch, lambda: ck.ln_scores(x, items, r), iters=20,
+                          label="ln_scores")
+    ls_plain_ms, _ = time_ms(torch, lambda: ck.ln_scores_plain(x, items, r), iters=3,
+                             warmup=1)
     n = items.numel()
     entries.append(kernel_entry(
         "crush_ln_scores_k3", "ceph_tpu/ops/pallas_crush.py:176",
         f"x, r [{CRUSH_LANES}], items [{CRUSH_LANES}, 128] (the root row)", err, ms,
-        ls_plain_ms, n * int32["ln_scores_kernel"] / INT32_OPS_PER_S * 1e3,
-        (12 * n + 8 * CRUSH_LANES) / HBM_BYTES_PER_S * 1e3, None, card, smi))
+        ls_plain_ms, ops_ms((n, sass["ln_scores_kernel"])),
+        (12 * n + 8 * CRUSH_LANES) / HBM_BYTES_PER_S * 1e3, None, card, smi,
+        host_ms=host_ms))
     log(f"[11 K3] ln_scores [{CRUSH_LANES}, 128]: equal to the plain version, {ms:.4f} ms")
     mixed = build_hierarchical_map(HOSTS, OSDS_PER_HOST)
     mixed.buckets[-7].weights[3] = 0  # host5's osd.43 draws S64_MIN
@@ -361,8 +533,14 @@ def crush_slice(torch, dev, card: str, smi: str) -> list[dict]:
     check(err == 0, "straw2_choose differs from its plain version")
     check(bool((got[bidx == -1 - empty.id] == ITEM_NONE).all()), "an empty bucket chose")
     check(not bool((got == 43).any()), "a zero-weight slot won")
+    builds = ck.MAGIC_BUILDS
+    check(torch.equal(ck.straw2_choose(*args, magic=(mcm.magic_m, mcm.magic_ka)), got),
+          "straw2_choose with the map's magic differs from the call that built it")
+    check(ck.MAGIC_BUILDS == builds, "straw2_choose built magic it was given")
     log(f"[11 K3] straw2_choose, {CRUSH_LANES} lanes over the root and {HOSTS} hosts, one "
-        f"zero-weight slot, one empty bucket: equal to the plain version")
+        f"zero-weight slot, one empty bucket: equal to the plain version, with the magic "
+        f"built in the wrapper and with the map's own")
+    k3_edges(torch, dev)
 
     # ---- the placement path: counts set to 0 here, read after phase 16 ----
     ck.reset_launch_counts()
@@ -493,6 +671,8 @@ def crush_slice(torch, dev, card: str, smi: str) -> list[dict]:
     check(launches["crush_straw2_k3"] > 0, "K3 was not launched on the placement path")
     for phase, count in per_phase.items():
         check(count > 0, f"phase {phase} placed without K3")
+    check(ck.MAGIC_BUILDS == 0, f"the placement path built K3's magic {ck.MAGIC_BUILDS} times "
+                                f"in the wrapper; the compiled maps carry it")
 
     # 17. K3 at phase 12's launch shapes: the first root draw and the first
     # host draw of one pass of the interpreter, over the xs it takes
@@ -503,21 +683,18 @@ def crush_slice(torch, dev, card: str, smi: str) -> list[dict]:
     hosts = (-1 - ck.straw2_choose(*root_args)).contiguous()
     host_args = (cm.items, cm.weights, cm.sizes, hosts, xs, zeros, zeros)
     map_bytes = cm.items.numel() * 12 + cm.sizes.numel() * 4
+    magic = (cm.magic_m, cm.magic_ka)
     for level, args in (("root", root_args), ("host", host_args)):
         got = ck.straw2_choose(*args)
         err = max_err(torch, got, ck.straw2_choose_plain(*args))
         check(err == 0, f"straw2_choose at the {level} differs from its plain version")
-        slots = int(cm.sizes[args[3].long()].sum())
-        ms = time_ms(torch, lambda: ck.straw2_choose(*args), iters=10)
-        k3_plain_ms = time_ms(torch, lambda: ck.straw2_choose_plain(*args), iters=2, warmup=1)
-        ops_ms = slots * int32["straw2_choose_kernel"] / INT32_OPS_PER_S * 1e3
-        bytes_ms = (16 * lanes + map_bytes) / HBM_BYTES_PER_S * 1e3
-        entries.append(kernel_entry(
-            "crush_straw2_k3", "ceph_tpu/ops/pallas_crush.py:176",
-            f"{lanes} lanes at the {level} ({slots} slots walked)", err,
-            ms, k3_plain_ms, ops_ms, bytes_ms, None, card, smi))
-        log(f"[17 K3] {level}, {lanes} lanes: {ms:.4f} ms, bound "
-            f"{max(ops_ms, bytes_ms):.4f} ms by operations, plain {k3_plain_ms:.1f} ms")
+        e, reduce_ms = k3_entry(torch, ck, args, magic, sass, map_bytes, err,
+                                f"{lanes} lanes at the {level}", card, smi)
+        entries.append(e)
+        log(f"[17 K3] {level}, {lanes} lanes, T {e['threads_per_lane']}: {e['ms']:.4f} ms "
+            f"(host {e['host_ms']:.4f} ms), bound {e['bound_ms']:.4f} ms by "
+            f"{e['bound_by']} (the reduction's overhead {reduce_ms:.4f} ms beyond it), "
+            f"plain {e['plain_ms']:.1f} ms")
     for e in entries:
         e["launches"] = launches[e["name"]]
     return entries
@@ -775,17 +952,20 @@ def osd_slice(torch, dev, card: str, smi: str, rs84, stripes, objects, si) -> li
         np.concatenate(xs, axis=1, out=pinned.numpy())
         pack_ms.append((time.perf_counter() - t0) * 1e3)
     packed = torch.empty((8, OBJECTS * S), dtype=torch.uint8, device=dev)
-    h2d_ms = time_ms(torch, lambda: packed.copy_(pinned, non_blocking=True), iters=5, warmup=1)
+    h2d_ms, _ = time_ms(torch, lambda: packed.copy_(pinned, non_blocking=True), iters=5,
+                        warmup=1)
     tables = TABLES.get(mat, dev, key)
     plain = apply_matrix_plain(mat, packed)
     res = gf_kernels.gf_apply(mat, [packed], tables=tables)
     torch.cuda.synchronize()
     err = max_err(torch, res, plain)
     check(err == 0, "K1 on the packed flush disagrees with the plain version")
-    ms = time_ms(torch, gf_kernels.prepare(mat, [packed], tables), iters=20)
-    plain_ms = time_ms(torch, lambda: apply_matrix_plain(mat, packed), iters=3, warmup=1)
+    ms, host_ms = time_ms(torch, gf_kernels.prepare(mat, [packed], tables), iters=20,
+                          label="K1 at the packed flush (staged launch)")
+    plain_ms, _ = time_ms(torch, lambda: apply_matrix_plain(mat, packed), iters=3, warmup=1)
     landing = torch.empty(res.shape, dtype=torch.uint8, pin_memory=True)
-    d2h_ms = time_ms(torch, lambda: landing.copy_(res, non_blocking=True), iters=5, warmup=1)
+    d2h_ms, _ = time_ms(torch, lambda: landing.copy_(res, non_blocking=True), iters=5,
+                        warmup=1)
     L = OBJECTS * S
     bound = bound_ms(4, 8, L)
     log(f"[19 breakdown] pack into pinned staging {np.median(pack_ms):.2f} ms (host), "
@@ -800,7 +980,8 @@ def osd_slice(torch, dev, card: str, smi: str, rs84, stripes, objects, si) -> li
         "shape": "RS(8,4) write-batcher flush (phase 19): one packed [8, 33554432] segment",
         "flush_ms": flush_s * 1e3, "flusher_ms": flusher_s * 1e3,
         "commit_wait_ms": commit_s * 1e3, "pack_ms": float(np.median(pack_ms)),
-        "h2d_ms": h2d_ms, "d2h_ms": d2h_ms, "card": card, "nvidia_smi": smi,
+        "h2d_ms": h2d_ms, "d2h_ms": d2h_ms, "host_ms": host_ms, "card": card,
+        "nvidia_smi": smi,
     }]
 
 
@@ -868,7 +1049,7 @@ def osdmap_slice(torch, dev, card: str, smi: str) -> list[dict]:
     from ceph_tpu_torch.ops import crush_kernels as ck
     from ceph_tpu_torch.tools import osdmaptool
 
-    int32 = int32_counts(ck.LIBRARY.path())
+    sass = pipe_counts(ck.LIBRARY.path())
     n_osd = HOSTS * OSDS_PER_HOST
     conf = CephContext("mon.a").conf
     target = conf.get("mon_target_pg_per_osd")
@@ -1050,12 +1231,15 @@ def osdmap_slice(torch, dev, card: str, smi: str) -> list[dict]:
     log(f"[OSDMap path] launches {launches}; crush_straw2_k3 by phase {per_phase}")
     for phase, count in per_phase.items():
         check(count > 0, f"phase {phase} mapped without K3")
+    check(ck.MAGIC_BUILDS == 0, f"the OSDMap path built K3's magic {ck.MAGIC_BUILDS} times "
+                                f"in the wrapper; the compiled maps carry it")
 
     # K3 at map_pool's launch shapes: the root and the host draw over each
     # pool's placement seeds (one pass of the interpreter takes the pool)
     entries = []
     cm = crush.compiled(dev)
     map_bytes = cm.items.numel() * 12 + cm.sizes.numel() * 4
+    magic = (cm.magic_m, cm.magic_ka)
     for pid, (pg_num, size, rule, _) in pools.items():
         pps = torch.from_numpy(
             m.pools[pid].raw_pg_to_pps_batch(np.arange(pg_num)).astype(np.int32)).to(dev)
@@ -1067,19 +1251,17 @@ def osdmap_slice(torch, dev, card: str, smi: str) -> list[dict]:
             got = ck.straw2_choose(*args)
             err = max_err(torch, got, ck.straw2_choose_plain(*args))
             check(err == 0, f"straw2_choose at pool {pid}'s {level} draw differs")
-            slots = int(cm.sizes[args[3].long()].sum())
-            ms = time_ms(torch, lambda: ck.straw2_choose(*args), iters=20)
-            plain_ms = time_ms(torch, lambda: ck.straw2_choose_plain(*args), iters=3, warmup=1)
-            ops_ms = slots * int32["straw2_choose_kernel"] / INT32_OPS_PER_S * 1e3
-            bytes_ms = (16 * pg_num + map_bytes) / HBM_BYTES_PER_S * 1e3
-            entries.append(kernel_entry(
-                "crush_straw2_k3", "ceph_tpu/ops/pallas_crush.py:176",
+            e, reduce_ms = k3_entry(
+                torch, ck, args, magic, sass, map_bytes, err,
                 f"OSDMap.map_pool, pool {pid} (pg_num {pg_num}, size {size}, rule {rule}): "
-                f"{pg_num} lanes at the {level} ({slots} slots walked)", err, ms, plain_ms,
-                ops_ms, bytes_ms, None, card, smi, launches_per_pass=per_pool[pid]))
-            log(f"[24 K3] map_pool pool {pid}, {pg_num} lanes at the {level}: {ms:.4f} ms, "
-                f"bound {max(ops_ms, bytes_ms):.4f} ms, plain {plain_ms:.2f} ms, "
-                f"{per_pool[pid]} K3 launches per map_pool")
+                f"{pg_num} lanes at the {level}", card, smi,
+                launches_per_pass=per_pool[pid])
+            entries.append(e)
+            log(f"[24 K3] map_pool pool {pid}, {pg_num} lanes at the {level}, T "
+                f"{e['threads_per_lane']}: {e['ms']:.4f} ms (host {e['host_ms']:.4f} ms), "
+                f"bound {e['bound_ms']:.4f} ms (the reduction's overhead {reduce_ms:.4f} ms "
+                f"beyond it), plain {e['plain_ms']:.2f} ms, {per_pool[pid]} K3 launches per "
+                f"map_pool")
     for e in entries:
         e["launches"] = launches[e["name"]]
     return entries
@@ -1451,14 +1633,16 @@ def cluster_slice(torch, dev, card: str, smi: str) -> list[dict]:
         torch.cuda.synchronize()
         err = max_err(torch, got, plain)
         check(err == 0, f"{name} disagrees with the plain version at {shape}")
-        ms = time_ms(torch, gf_kernels.prepare(mat, [x], tables), iters=20)
-        plain_ms = time_ms(torch, lambda: apply_matrix_plain(mat, x), iters=3, warmup=1)
+        ms, host_ms = time_ms(torch, gf_kernels.prepare(mat, [x], tables), iters=20,
+                              label=f"{name} at {shape} (staged launch)")
+        plain_ms, _ = time_ms(torch, lambda: apply_matrix_plain(mat, x), iters=3, warmup=1)
         bound = bound_ms(*mat.shape, cols)
         entries.append({
             "name": name, "route": "cuda", "source": "ceph_tpu_torch/csrc/gf_apply.cu",
             "replaces": replaces, "launches": total[name], "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes", "library_ms": None,
-            "shape": shape, "launches_by_phase": {p: v[name] for p, v in per_phase.items()},
+            "host_ms": host_ms, "shape": shape,
+            "launches_by_phase": {p: v[name] for p, v in per_phase.items()},
             "card": card, "nvidia_smi": smi,
         })
         log(f"[29 {name}] {shape}: {ms:.4f} ms, bound {bound:.4f} ms by bytes, "
@@ -1663,9 +1847,12 @@ def main() -> int:
         check(err == 0, f"{name} disagrees with the plain version at {shape}")
         # the kernel alone (a staged launch), then the whole wrapper, whose
         # host work (checks, 256 segment descriptors) the events also see
-        ms = time_ms(torch, gf_kernels.prepare(mat, segs, tables), iters=20)
-        wrapper_ms = time_ms(torch, lambda: gf_apply(mat, segs, tables=tables), iters=20)
-        plain_ms = time_ms(torch, lambda: apply_matrix_plain(mat, whole), iters=3, warmup=1)
+        ms, host_ms = time_ms(torch, gf_kernels.prepare(mat, segs, tables), iters=20,
+                              label=f"{name} at {shape} (staged launch)")
+        wrapper_ms, wrapper_host_ms = time_ms(
+            torch, lambda: gf_apply(mat, segs, tables=tables), iters=20,
+            label=f"gf_apply at {shape}")
+        plain_ms, _ = time_ms(torch, lambda: apply_matrix_plain(mat, whole), iters=3, warmup=1)
         bound = bound_ms(rows, n, L)
         moved = (rows + n) * L
         tc = {"tc_floor_ms": tc_floor_ms(rows, n, L)} if name == "gf_apply_k2" else {}
@@ -1673,7 +1860,8 @@ def main() -> int:
             "name": name, "route": "cuda", "source": "ceph_tpu_torch/csrc/gf_apply.cu",
             "replaces": replaces, "launches": launches[name], "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes",
-            "library_ms": None, "wrapper_ms": wrapper_ms, "shape": shape,
+            "library_ms": None, "wrapper_ms": wrapper_ms, "host_ms": host_ms,
+            "wrapper_host_ms": wrapper_host_ms, "shape": shape,
             "bytes_moved": moved,
             "gib_per_s": moved / (ms * 1e-3) / 2**30, "card": card, "nvidia_smi": smi,
             **tc,

@@ -4,7 +4,8 @@ unaligned and strided rows, several segments in one launch, 333 of them
 for K2; K2 at rows around its 8-row tiles, n around its 4-row k-steps
 and 64-row stages, L one short of and one past its 64-column warp
 tiles and 256-column block tiles); K3 (ragged lane counts, bucket
-widths 1 to 128, empty buckets, weight-set positions) and both forms of
+widths 1 to 128, empty buckets, weight-set positions, and chip_smoke.py's
+edge tables at 1, 2, 8 and 32 threads a lane) and both forms of
 the crush_ln probe over every u; the batch mapper on the card; the
 OSDMap's map_pool against device="cpu" and the scalar mapping (pg_num
 not a power of two, EC pools wider than the hosts); the
@@ -24,6 +25,7 @@ from ceph_tpu_torch.gf.matrix import cauchy_good_coding_matrix
 from ceph_tpu_torch.gf.reference_codec import apply_matrix as apply_ref
 from ceph_tpu_torch.ops import gf_kernels
 from ceph_tpu_torch.ops.gf_kernels import apply_matrix_plain, gf_apply, kernel_for
+from chip_smoke import K3_EDGE_CASES, k3_edge_case
 
 pytestmark = pytest.mark.cuda
 
@@ -162,16 +164,25 @@ def _straw2_case(S, n_idx, P, B, seed):
     return [items, weights, sizes] + [a.astype(np.int32) for a in lanes]
 
 
-@pytest.mark.parametrize("S,n_idx,P,B", [
-    (1, 3, 1, 1000), (8, 17, 1, 4097), (128, 129, 1, 65537), (8, 9, 3, 3001),
-    (128, 5, 2, 777), (37, 11, 1, 1),
-])
-def test_straw2_choose_matches_plain(cuda, S, n_idx, P, B):
+_EDGE = {c[0]: c[1:] for c in K3_EDGE_CASES}
+
+
+@pytest.mark.parametrize("kind,S,n_idx,P,B,T", [
+    ("random", 1, 3, 1, 1000, None), ("random", 8, 17, 1, 4097, None),
+    ("random", 128, 129, 1, 65537, None), ("random", 8, 9, 3, 3001, None),
+    ("random", 128, 5, 2, 777, None), ("random", 37, 11, 1, 1, None),
+] + [("edge", *_EDGE[name], T) for name in _EDGE for T in (None, 1, 2, 8, 32)])
+def test_straw2_choose_matches_plain(cuda, kind, S, n_idx, P, B, T):
+    """K3 at T threads a lane (None: the host's choice) against the plain
+    version on the card and on the CPU: random tables, and chip_smoke.py's
+    edge tables (B across the thread choices, S of 1, 8, 37 and 128, ties,
+    weights 1, 2^16, 2^31, 0xFFFFFFFF and 0, an all-zero bucket, P = 3)."""
     from ceph_tpu_torch.ops import crush_kernels
 
-    args = [torch.from_numpy(a).to(cuda) for a in _straw2_case(S, n_idx, P, B, S * B)]
+    make = _straw2_case if kind == "random" else k3_edge_case
+    args = [torch.from_numpy(a).to(cuda) for a in make(S, n_idx, P, B, S * B)]
     before = crush_kernels.LAUNCHES["crush_straw2_k3"]
-    got = crush_kernels.straw2_choose(*args)
+    got = crush_kernels.straw2_choose(*args, threads=T)
     want = crush_kernels.straw2_choose_plain(*args)
     torch.cuda.synchronize()
     assert crush_kernels.LAUNCHES["crush_straw2_k3"] == before + 1
