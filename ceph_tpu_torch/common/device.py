@@ -23,6 +23,21 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     return dev
 
 
+#: SM count per CUDA device index, read once
+_SMS: dict[int, int] = {}
+
+
+def sm_count(device: torch.device) -> int:
+    """The SM count of `device` (the current device when it has no
+    index), read once per device; the kernels size their grids by it."""
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    if index not in _SMS:
+        _SMS[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return _SMS[index]
+
+
 def as_bytes_tensor(x, device: torch.device) -> torch.Tensor:
     """uint8 tensor on `device` from a tensor, numpy array or bytes."""
     if isinstance(x, torch.Tensor):

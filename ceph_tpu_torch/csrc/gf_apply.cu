@@ -8,18 +8,31 @@
 // from device memory once.  The TPU kernel's G row grouping, VMEM model
 // and bf16 pack-by-matmul are TPU layout and are not carried over.
 //
-// K1, for thin matrices (RS encode and decode): split-nibble multiply
-// tables (ISA-L's form).  For a matrix entry c the 32-byte table holds
-// lo[x] = c*x and hi[x] = c*(x << 4) for the 16 nibble values x, so
-// c*b = lo[b & 15] ^ hi[b >> 4].  A nibble lookup for 4 bytes is two
-// __byte_perm over the table's two 8-byte halves and a byte select on the
-// nibble's top bit.  The tables of the whole matrix sit in one block's
-// shared memory (the host sends a matrix here when rows <= MAX_ROWS and
-// the tables fit K1_MAX_TABLE_BYTES, see ops/gf_kernels.py) and every
-// thread of a warp reads the same entry (a broadcast).  Each block walks
-// a column tile of all n input rows; a thread owns 16 byte columns and
-// issues the next row's load before the current row's lookups.  Bound by
-// bytes: the RS shapes do ~n*rows lookups per byte moved.
+// K1, for thin matrices (RS encode and decode).  A product by a constant c
+// is linear over GF(2), so with a byte b split into bit fields of 3, 3 and
+// 2 bits, c*b = TA[b & 7] ^ TB[(b >> 3) & 7] ^ TC[b >> 6], where TA[x] = c*x,
+// TB[x] = c*(x << 3) and TC[x] = c*(x << 6).  A table of at most 8 entries
+// fits two registers, so one PRMT looks a field up for 4 bytes at once,
+// and since a selector nibble stays below 8 no byte select is needed
+// (ISA-L's 16-entry split-nibble table takes two __byte_perm and a select
+// a lookup).  A field's selector costs a mask, an IMAD and a PRMT (and a
+// shift for the upper two), shared by the matrix's rows; the lookups of
+// two input rows fold into an output word with three LOP3, so a word and
+// matrix entry costs 3 PRMT and 1.5 LOP3.  An entry's 20 table bytes are
+// padded to 32 (ops/gf_kernels.py::field_tables); the whole matrix's
+// tables sit in one block's shared memory (the host sends a matrix here
+// when rows <= MAX_ROWS and the tables fit K1_MAX_TABLE_BYTES) and every
+// thread of a warp reads the same entry (a broadcast).  A thread owns one
+// or two vectors of 16 byte columns; for each, its row loop issues the
+// loads of K1_RING input rows before any lookup and runs the trip as one
+// block of straight code, all MAXR accumulators computed (instantiations
+// for 1, 2, 4, 8 and 16 rows; the rows past the matrix's are never
+// stored).  The host fits the tile to the launch (ops/gf_kernels.py::
+// k1_layout: the largest of 8192, 4096 and 2048 columns a block that
+// still gives two blocks an SM) and passes up to K1_PARAM_SEGS segment
+// descriptors by value in the kernel's parameters.  Bound by bytes, or
+// at 8 input rows about as much by the INT32 pipe: chip_smoke.py counts
+// the row loop in the SASS and logs that floor beside the byte bound.
 //
 // K2, for fat matrices (CLAY repair [64, 176] and [256, 960]): a bitplane
 // product on the tensor cores, the TPU kernel's own formulation.  A GF(2^8)
@@ -67,11 +80,22 @@
 // Ragged lengths and unaligned rows are masked in the kernel; the host
 // pads nothing.
 #include <cstdint>
+#include <cstring>
 #include <cuda_runtime.h>
 namespace {
 
-constexpr int K1_THREADS = 256;
-constexpr int K1_VECS_PER_THREAD = 2;  // 16-byte vectors: 8192 byte columns per block
+constexpr int K1_MAX_THREADS = 256;
+constexpr int K1_MAX_VECS = 2;  // 16-byte vectors a thread: 8192 byte columns a block at most
+// input rows whose loads a thread issues before any lookup
+constexpr int K1_RING = 8;
+// segment descriptors K1 takes by value (ops/gf_kernels.K1_PARAM_SEGS);
+// a launch over more reads them from a device array
+constexpr int K1_PARAM_SEGS = 120;
+// the most table bytes a K1 matrix has (ops/gf_kernels.K1_MAX_TABLE_BYTES):
+// within the 48 KiB of dynamic shared memory a launch gets without
+// cudaFuncSetAttribute
+constexpr int K1_MAX_TABLE_BYTES = 16 * 1024;
+static_assert(K1_MAX_TABLE_BYTES <= 48 * 1024, "K1's tables need the shared-memory attribute");
 
 // One segment descriptor is four int64: input pointer, input row stride
 // (bytes), length (bytes), first output column.
@@ -90,6 +114,19 @@ __device__ __forceinline__ Segment load_segment(const long long* segs, int s) {
   g.out_col = segs[4 * s + 3];
   return g;
 }
+
+// Everything a K1 launch takes, passed by value: the descriptors of up to
+// K1_PARAM_SEGS segments ride in the kernel's parameters, so a launch over
+// few segments needs no descriptor copy to the card.
+struct K1Args {
+  const uint4* tables;    // field_tables(mat): entry (i, j) at [2 * (i * n + j)]
+  const long long* segs;  // device descriptors when nseg > K1_PARAM_SEGS
+  uint8_t* out;
+  long long out_stride;
+  int rows, n, nseg, vecs;
+  Segment seg[K1_PARAM_SEGS];
+};
+static_assert(sizeof(K1Args) <= 4096, "K1's parameters must fit the 4 KiB every toolkit takes");
 
 __device__ __forceinline__ bool words_aligned(const Segment& g, const uint8_t* out,
                                               long long out_stride) {
@@ -125,24 +162,6 @@ __device__ __forceinline__ void store_word(uint8_t* row, long long c, long long 
     if (c + b < len) row[c + b] = static_cast<uint8_t>(v >> (8 * b));
 }
 
-// Bytes [c, c+16) of a row as four words; bytes past len read 0.
-struct Vec {
-  uint32_t w[4];
-};
-
-__device__ __forceinline__ Vec load_vec(const uint8_t* row, long long c, long long len,
-                                        bool aligned16, bool aligned4) {
-  Vec v;
-  if (aligned16 && c + 16 <= len) {
-    const uint4 q = *reinterpret_cast<const uint4*>(row + c);
-    v.w[0] = q.x; v.w[1] = q.y; v.w[2] = q.z; v.w[3] = q.w;
-    return v;
-  }
-#pragma unroll
-  for (int k = 0; k < 4; ++k) v.w[k] = load_word(row, c + 4 * k, len, aligned4);
-  return v;
-}
-
 __device__ __forceinline__ void store_vec(uint8_t* row, long long c, long long len,
                                           bool aligned16, bool aligned4, const uint32_t (&v)[4]) {
   if (aligned16 && c + 16 <= len) {
@@ -153,89 +172,159 @@ __device__ __forceinline__ void store_vec(uint8_t* row, long long c, long long l
   for (int k = 0; k < 4; ++k) store_word(row, c + 4 * k, len, aligned4, v[k]);
 }
 
-// Bytes y0..y3 (each < 8) -> __byte_perm selector nibbles at bits 0/4/8/12.
-__device__ __forceinline__ uint32_t pack_selector(uint32_t y) {
-  uint32_t t = y | (y >> 4);
-  return (t & 0xFFu) | ((t >> 8) & 0xFF00u);
+// Bytes y0..y3 (each < 8) -> the selector nibbles y1, y0, y3, y2:
+// y * 0x1001 (one IMAD, on the FMA pipe beside the INT32 pipe's lookups)
+// holds y1 | y0 << 4 in byte 1 and y3 | y2 << 4 in byte 3 (the fields do
+// not overlap, so nothing carries), and the perm gathers those two bytes.
+// So every lookup's output bytes come out swapped in pairs (1 0 3 2), and
+// K1 swaps each accumulator back once, before its store.
+__device__ __forceinline__ uint32_t selector(uint32_t y) {
+  return __byte_perm(y * 0x1001u, 0, 0x4431);
 }
 
-// The four nibble lookups' operands for one input word.
-struct Nibbles {
-  uint32_t sel_lo, top_lo, sel_hi, top_hi;
+// The three field selectors of one input word, shared by every matrix row.
+struct Fields {
+  uint32_t a, b, c;
 };
 
-__device__ __forceinline__ Nibbles split_word(uint32_t x) {
-  Nibbles r;
-  r.sel_lo = pack_selector(x & 0x07070707u);
-  r.sel_hi = pack_selector((x >> 4) & 0x07070707u);
-  // 0xFF in each byte whose nibble is >= 8 (entry in the table's top half)
-  r.top_lo = ((x >> 3) & 0x01010101u) * 0xFFu;
-  r.top_hi = ((x >> 7) & 0x01010101u) * 0xFFu;
+__device__ __forceinline__ Fields split_fields(uint32_t x) {
+  return {selector(x & 0x07070707u), selector((x >> 3) & 0x07070707u),
+          selector((x >> 6) & 0x03030303u)};
+}
+
+// __byte_perm(a, b, s) for a selector known only at run time, without the
+// mask (s & 0x7777) nvcc puts before each such PRMT: PTX prmt reads bit 3
+// of a nibble as "replicate the byte's sign", and K1's selector nibbles
+// are below 8.
+__device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b, uint32_t s) {
+  uint32_t r;
+  asm("prmt.b32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(s));
   return r;
 }
 
-// 16-entry byte table t, looked up at 4 nibbles at once.
-__device__ __forceinline__ uint32_t lookup(const uint4& t, uint32_t sel, uint32_t top) {
-  uint32_t a = __byte_perm(t.x, t.y, sel);  // entries 0..7
-  uint32_t b = __byte_perm(t.z, t.w, sel);  // entries 8..15
-  return (a & ~top) | (b & top);
+// One matrix entry's tables from shared memory: TA in .x .y and TB in .z .w
+// of tab[2 * e], TC in .x of tab[2 * e + 1].
+struct Entry {
+  uint4 ab;
+  uint32_t c;
+};
+
+__device__ __forceinline__ Entry entry(const uint4* tab, int e) {
+  return {tab[2 * e], reinterpret_cast<const uint32_t*>(tab + 2 * e + 1)[0]};
 }
 
-// acc[i] ^= mat[i, j] * x for four words x at once: each table entry is
-// read once for all four; entry (i, j) at tab[2 * (i * n + j)].
-template <int MAXR>
-__device__ __forceinline__ void mul_add_rows4(uint32_t (&acc)[MAXR][4], const uint4* tab,
-                                              int n, int j, int nrows, const Vec& x) {
-  Nibbles nb[4];
+// c * x for the four bytes of x, from x's field selectors.
+__device__ __forceinline__ uint32_t lookup(const Entry& t, const Fields& f) {
+  return prmt(t.ab.x, t.ab.y, f.a) ^ prmt(t.ab.z, t.ab.w, f.b) ^ prmt(t.c, t.c, f.c);
+}
+
+// acc[i] ^= mat[i, j + r] * x[r] for R input rows (16 byte columns each):
+// with R = 2 the six lookups of an output word fold into it with three
+// LOP3, 1.5 a lookup pair.  Every one of the MAXR accumulators is
+// computed; rows past `rows` repeat the last row and are never stored.
+template <int MAXR, int R>
+__device__ __forceinline__ void k1_step(uint32_t (&acc)[MAXR][4], const uint4* tab, int n,
+                                        int rows, int j, const uint32_t (&x)[R][4]) {
+  Fields f[R][4];
 #pragma unroll
-  for (int k = 0; k < 4; ++k) nb[k] = split_word(x.w[k]);
-  const uint4* tj = tab + 2 * j;
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) f[r][k] = split_fields(x[r][k]);
 #pragma unroll
   for (int i = 0; i < MAXR; ++i) {
-    if (i < nrows) {
-      const uint4 lo = tj[2 * n * i];
-      const uint4 hi = tj[2 * n * i + 1];
+    const int row = min(i, rows - 1);
+    Entry t[R];
 #pragma unroll
-      for (int k = 0; k < 4; ++k)
-        acc[i][k] ^= lookup(lo, nb[k].sel_lo, nb[k].top_lo) ^
-                     lookup(hi, nb[k].sel_hi, nb[k].top_hi);
+    for (int r = 0; r < R; ++r) t[r] = entry(tab, row * n + j + r);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      uint32_t v = acc[i][k];
+#pragma unroll
+      for (int r = 0; r < R; ++r) v ^= lookup(t[r], f[r][k]);
+      acc[i][k] = v;
     }
   }
 }
 
+// Bytes [c, c + 16) of an input row as four words.  VEC: they lie inside
+// the segment on a 16-byte aligned row, one streaming 16-byte load (the
+// input is read once); else word or byte loads, 0 past the end.
+template <bool VEC>
+__device__ __forceinline__ void k1_load(uint32_t (&x)[4], const uint8_t* row, long long c,
+                                        long long len, bool a4) {
+  if constexpr (VEC) {
+    const uint4 q = __ldcs(reinterpret_cast<const uint4*>(row + c));
+    x[0] = q.x; x[1] = q.y; x[2] = q.z; x[3] = q.w;
+  } else {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) x[k] = load_word(row, c + 4 * k, len, a4);
+  }
+}
+
+// acc = mat x in[:, c .. c + 16) over all n input rows.  K1's row loop
+// takes K1_RING rows a trip, every load of the trip issued before its
+// first lookup, and the trip is one block of straight code; the n %
+// K1_RING rows left over go one at a time.
+template <int MAXR, bool VEC>
+__device__ __forceinline__ void k1_rows(uint32_t (&acc)[MAXR][4], const uint4* tab,
+                                        const Segment& g, int rows, int n, long long c,
+                                        bool a4) {
+  const uint8_t* row = g.in;
+  int j = 0;
+#pragma unroll 1
+  for (; j + K1_RING <= n; j += K1_RING) {
+    uint32_t x[K1_RING / 2][2][4];
+#pragma unroll
+    for (int r = 0; r < K1_RING; ++r, row += g.stride)
+      k1_load<VEC>(x[r / 2][r % 2], row, c, g.len, a4);
+#pragma unroll
+    for (int p = 0; p < K1_RING / 2; ++p) k1_step<MAXR, 2>(acc, tab, n, rows, j + 2 * p, x[p]);
+  }
+#pragma unroll 1
+  for (; j < n; ++j, row += g.stride) {
+    uint32_t x[1][4];
+    k1_load<VEC>(x[0], row, c, g.len, a4);
+    k1_step<MAXR, 1>(acc, tab, n, rows, j, x);
+  }
+}
+
+// Blocks of K1_MAX_THREADS an SM: the registers the compiler may take
+// (80 a thread at 3 blocks) leave room for 4 blocks at up to 2 rows, 3 at
+// up to 4 (24 warps, against 16 at the 114 registers it takes unbounded;
+// the packed flush runs ~11 % faster on an H100, PERF.md), 2 at 8 and 1
+// at 16.
 template <int MAXR>
-__global__ void __launch_bounds__(K1_THREADS)
-gf_apply_k1(const uint4* __restrict__ tables, int rows, int n,
-            const long long* __restrict__ segs, uint8_t* __restrict__ out,
-            long long out_stride) {
+__global__ void __launch_bounds__(K1_MAX_THREADS,
+                                  MAXR <= 2 ? 4 : MAXR <= 4 ? 3 : MAXR <= 8 ? 2 : 1)
+gf_apply_k1(const __grid_constant__ K1Args a) {
   extern __shared__ uint4 tab[];  // rows * n * 2
-  const Segment g = load_segment(segs, blockIdx.y);
-  const long long tile0 =
-      static_cast<long long>(blockIdx.x) * (K1_THREADS * K1_VECS_PER_THREAD * 16);
+  const Segment g = a.nseg <= K1_PARAM_SEGS ? a.seg[blockIdx.y] : load_segment(a.segs, blockIdx.y);
+  const long long tile0 = static_cast<long long>(blockIdx.x) * (blockDim.x * a.vecs * 16);
   if (tile0 >= g.len) return;  // whole block: this segment is shorter
-  for (int t = threadIdx.x; t < rows * n * 2; t += K1_THREADS) tab[t] = tables[t];
+  for (int t = threadIdx.x; t < a.rows * a.n * 2; t += blockDim.x) tab[t] = a.tables[t];
   __syncthreads();
-  const bool a4 = words_aligned(g, out, out_stride);
-  const bool a16 = vecs_aligned(g, out, out_stride);
-  uint8_t* out_seg = out + g.out_col;
-  for (int v = 0; v < K1_VECS_PER_THREAD; ++v) {
-    const long long c = tile0 + 16LL * (v * K1_THREADS + threadIdx.x);
+  const bool a4 = words_aligned(g, a.out, a.out_stride);
+  const bool a16 = vecs_aligned(g, a.out, a.out_stride);
+  uint8_t* out_seg = a.out + g.out_col;
+  for (int v = 0; v < a.vecs; ++v) {
+    const long long c = tile0 + 16LL * (v * blockDim.x + threadIdx.x);
     if (c >= g.len) break;
     uint32_t acc[MAXR][4];
 #pragma unroll
     for (int i = 0; i < MAXR; ++i)
 #pragma unroll
       for (int k = 0; k < 4; ++k) acc[i][k] = 0;
-    Vec x = load_vec(g.in, c, g.len, a16, a4);
-    for (int j = 0; j < n; ++j) {
-      Vec next = x;
-      if (j + 1 < n) next = load_vec(g.in + (j + 1) * g.stride, c, g.len, a16, a4);
-      mul_add_rows4<MAXR>(acc, tab, n, j, rows, x);
-      x = next;
-    }
+    if (a16 && c + 16 <= g.len)
+      k1_rows<MAXR, true>(acc, tab, g, a.rows, a.n, c, a4);
+    else
+      k1_rows<MAXR, false>(acc, tab, g, a.rows, a.n, c, a4);
 #pragma unroll
     for (int i = 0; i < MAXR; ++i)
-      if (i < rows) store_vec(out_seg + i * out_stride, c, g.len, a16, a4, acc[i]);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) acc[i][k] = __byte_perm(acc[i][k], 0, 0x2301);
+#pragma unroll
+    for (int i = 0; i < MAXR; ++i)
+      if (i < a.rows) store_vec(out_seg + i * a.out_stride, c, g.len, a16, a4, acc[i]);
   }
 }
 
@@ -466,18 +555,11 @@ gf_apply_k2(const uint8_t* __restrict__ op, int rows, int n, int op_pitch,
 }
 
 template <int MAXR>
-int launch_k1(const void* tables, int rows, int n, const void* segs, int nseg,
-              long long max_len, void* out, long long out_stride, void* stream) {
-  const size_t smem = 32ull * rows * n;
-  const long long cols = K1_THREADS * K1_VECS_PER_THREAD * 16;
-  const dim3 grid(static_cast<unsigned>((max_len + cols - 1) / cols),
-                  static_cast<unsigned>(nseg));
-  const cudaError_t err = cudaFuncSetAttribute(
-      gf_apply_k1<MAXR>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  gf_apply_k1<MAXR><<<grid, K1_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint4*>(tables), rows, n, static_cast<const long long*>(segs),
-      static_cast<uint8_t*>(out), out_stride);
+int launch_k1(const K1Args& a, long long max_len, int threads, void* stream) {
+  const long long tile = static_cast<long long>(threads) * a.vecs * 16;
+  const dim3 grid(static_cast<unsigned>((max_len + tile - 1) / tile), static_cast<unsigned>(a.nseg));
+  const size_t smem = 32ull * a.rows * a.n;
+  gf_apply_k1<MAXR><<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -486,14 +568,32 @@ int launch_k1(const void* tables, int rows, int n, const void* segs, int nseg,
 extern "C" {
 
 // Both launchers return cudaGetLastError() after the launch (0 on success).
-int gf_apply_k1_launch(const void* tables, int rows, int n, const void* segs, int nseg,
-                       long long max_len, void* out, long long out_stride,
-                       void* stream) {
-  if (rows <= 4)
-    return launch_k1<4>(tables, rows, n, segs, nseg, max_len, out, out_stride, stream);
-  if (rows <= 8)
-    return launch_k1<8>(tables, rows, n, segs, nseg, max_len, out, out_stride, stream);
-  return launch_k1<16>(tables, rows, n, segs, nseg, max_len, out, out_stride, stream);
+// K1: tables = field_tables(mat) on the device; the segment descriptors
+// (four int64 each: input pointer, row stride, length, first output
+// column) come from host memory (host_segs) when nseg <= K1_PARAM_SEGS,
+// else from the device (dev_segs); threads and vecs are k1_layout's tile.
+int gf_apply_k1_launch(const void* tables, int rows, int n, const void* host_segs,
+                       const void* dev_segs, int nseg, long long max_len, void* out,
+                       long long out_stride, int threads, int vecs, void* stream) {
+  if (rows < 1 || rows > 16 || n < 1 || nseg < 1 || 32LL * rows * n > K1_MAX_TABLE_BYTES ||
+      threads < 32 || threads > K1_MAX_THREADS || threads % 32 != 0 || vecs < 1 ||
+      vecs > K1_MAX_VECS || (nseg <= K1_PARAM_SEGS ? host_segs : dev_segs) == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  K1Args a = {};
+  a.tables = static_cast<const uint4*>(tables);
+  a.segs = static_cast<const long long*>(dev_segs);
+  a.out = static_cast<uint8_t*>(out);
+  a.out_stride = out_stride;
+  a.rows = rows;
+  a.n = n;
+  a.nseg = nseg;
+  a.vecs = vecs;
+  if (nseg <= K1_PARAM_SEGS) std::memcpy(a.seg, host_segs, sizeof(Segment) * nseg);
+  if (rows == 1) return launch_k1<1>(a, max_len, threads, stream);
+  if (rows == 2) return launch_k1<2>(a, max_len, threads, stream);
+  if (rows <= 4) return launch_k1<4>(a, max_len, threads, stream);
+  if (rows <= 8) return launch_k1<8>(a, max_len, threads, stream);
+  return launch_k1<16>(a, max_len, threads, stream);
 }
 
 // op: k2_operand(mat) on the device, [8 * ceil(rows / 8) * 8, op_pitch].

@@ -4,7 +4,7 @@ The port's own copy of ceph_tpu/gf/tables.py (the port imports nothing of
 ceph_tpu): the role gf-complete plays in the reference (reference:
 src/erasure-code/jerasure/gf-complete :: gf_w8).  Plain numpy tables for
 matrix construction, host-side inversion, the numpy reference codec, and
-the split-nibble tables the CUDA kernels look up (ops/gf_kernels.py).
+the bit-field tables the CUDA kernel K1 looks up (ops/gf_kernels.py).
 
 Field: GF(2^8) with primitive polynomial 0x11D (x^8+x^4+x^3+x^2+1), the
 default used by jerasure/gf-complete for w=8 (reference:

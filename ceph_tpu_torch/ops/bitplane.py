@@ -39,7 +39,7 @@ def matrix_digest(mat: np.ndarray) -> str:
 
 class TableCache:
     """Bounded LRU of the kernels' matrix operands on the device (K1's
-    split-nibble tables, K2's packed bitmatrix: ``device_operand``), keyed
+    bit-field tables, K2's packed bitmatrix: ``device_operand``), keyed
     by (matrix digest, device): a hot matrix is expanded and copied to the
     card once."""
 

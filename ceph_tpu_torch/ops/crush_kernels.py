@@ -39,6 +39,7 @@ import ctypes
 import numpy as np
 import torch
 
+from ..common.device import sm_count
 from ..crush.hash import crush_hash32_3
 from ..crush.ln_table import CRUSH_LN_TABLE, LL_TBL, LN_BIAS, RH_LH_TBL
 from ..crush.magic_div import join_limbs, magic_tables
@@ -137,19 +138,6 @@ def threads_per_lane(B: int, S: int, sms: int) -> int:
     once B alone fills the wave."""
     cap = min(MAX_THREADS_PER_LANE, 1 << max(S - 1, 0).bit_length())
     return max(1, min(cap, _pow2_floor(sms * THREADS_PER_SM // max(B, 1))))
-
-
-_SMS: dict[int, int] = {}
-
-
-def sm_count(device: torch.device) -> int:
-    """The card's SM count, read once per device."""
-    index = torch.device(device).index
-    if index is None:
-        index = torch.cuda.current_device()
-    if index not in _SMS:
-        _SMS[index] = torch.cuda.get_device_properties(index).multi_processor_count
-    return _SMS[index]
 
 
 def _launch(name: str, fn, *args) -> None:

@@ -9,8 +9,9 @@ csrc/gf_apply.cu and replace the two Pallas kernels one for one:
 Both compute ``out[rows, L] = mat[rows, n] x in[n, L]`` over GF(2^8)
 (polynomial 0x11d), bit-exact against gf/reference_codec.apply_matrix.
 ``kernel_for`` is the rule that picks one.  K1 looks the products up in
-split-nibble tables (32 bytes per matrix entry, ``nibble_tables``) that
-hold the whole matrix in one block's shared memory.  K2 takes the fat
+bit-field tables (3, 3 and 2 bits of a byte; 32 bytes per matrix entry,
+``field_tables``) that hold the whole matrix in one block's shared
+memory; ``k1_layout`` fits its tile to the launch.  K2 takes the fat
 matrices: it runs the bitplane product on the tensor cores, against
 ``k2_operand`` (the GF(2) bitmatrix, packed and with its rows permuted
 for the kernel's epilogue); ``k2_layout`` gives its grid and shared
@@ -34,6 +35,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..common.device import sm_count
 from ..gf.matrix import matrix_to_bitmatrix
 from ..gf.tables import GF_MUL_TABLE
 from .nvcc import NvccLibrary
@@ -41,7 +43,8 @@ from .nvcc import NvccLibrary
 #: accumulators a thread of K1 keeps: a K1 matrix has at most this many
 #: rows (csrc: the largest MAXR instantiation)
 MAX_ROWS = 16
-#: split-nibble table bytes per matrix entry: lo[16] then hi[16]
+#: table bytes per matrix entry: TA[8], TB[8] and TC[4] of ``field_tables``,
+#: padded to 32
 TABLE_BYTES_PER_ENTRY = 32
 #: THE K1/K2 rule: a matrix goes to K1 when rows <= MAX_ROWS and its
 #: tables take at most this many bytes of the block's shared memory;
@@ -49,6 +52,16 @@ TABLE_BYTES_PER_ENTRY = 32
 #: its decode [8, 8] 2 KiB; CLAY(8,4,d=11) repair [64, 176] would take
 #: 352 KiB.
 K1_MAX_TABLE_BYTES = 16 * 1024
+#: K1's tiles, largest first: (threads a block, 16-byte vectors a
+#: thread), 8192, 4096 and 2048 byte columns a block (``k1_layout``)
+K1_TILES = ((256, 2), (256, 1), (128, 1))
+#: input rows whose loads a K1 thread issues before any lookup: one trip
+#: of its row loop (csrc K1_RING)
+K1_RING = 8
+#: segment descriptors a K1 launch takes by value in its kernel parameters
+#: (csrc K1_PARAM_SEGS, within the 4 KiB of parameters every CUDA 12
+#: toolkit takes); a launch over more copies them to a device array
+K1_PARAM_SEGS = 120
 #: K2's block tile (csrc K2_TILE_ROWS, K2_TILE_COLS): 8 output rows (64
 #: bitmatrix rows) x 256 byte columns, 4 warps of 64 columns each
 K2_TILE_ROWS = 8
@@ -79,6 +92,33 @@ def kernel_for(rows: int, n: int) -> str:
     if rows <= MAX_ROWS and rows * n * TABLE_BYTES_PER_ENTRY <= K1_MAX_TABLE_BYTES:
         return "gf_apply_k1"
     return "gf_apply_k2"
+
+
+class K1Layout(NamedTuple):
+    """One K1 launch's shape (csrc gf_apply_k1_launch computes the grid
+    from threads and vecs the same way)."""
+
+    threads: int    # threads a block
+    vecs: int       # 16-byte vectors of byte columns a thread
+    col_tiles: int  # blocks along the longest segment
+
+    @property
+    def tile_cols(self) -> int:
+        return 16 * self.threads * self.vecs
+
+
+def k1_layout(max_len: int, nseg: int, sms: int) -> K1Layout:
+    """K1's tile for a launch over ``nseg`` segments at most
+    ``max_len`` long: the largest of K1_TILES that still gives at least
+    two blocks an SM over the launch, else the smallest (2048 columns).
+    A 4 MiB object's [8, 524288] stripe on 132 SMs: 256 blocks of 2048
+    columns; the write batcher's packed [8, 33554432] flush: 4096 of
+    8192."""
+    for threads, vecs in K1_TILES:
+        tiles = -(-max_len // (16 * threads * vecs))
+        if tiles * nseg >= 2 * sms:
+            break
+    return K1Layout(threads, vecs, max(1, tiles))
 
 
 class K2Layout(NamedTuple):
@@ -133,21 +173,27 @@ def operand_shape(rows: int, n: int) -> tuple[int, ...]:
 
 def device_operand(mat: np.ndarray) -> np.ndarray:
     """What the kernel ``kernel_for`` picks reads for ``mat``: K1's
-    nibble tables or K2's packed bitmatrix."""
+    field tables or K2's packed bitmatrix."""
     if kernel_for(*np.shape(mat)) == "gf_apply_k1":
-        return nibble_tables(mat)
+        return field_tables(mat)
     return k2_operand(mat)
 
 
-def nibble_tables(mat: np.ndarray) -> np.ndarray:
-    """[rows, n, 32] uint8: entry (i, j) holds lo[x] = mat[i,j]*x and
-    hi[x] = mat[i,j]*(x << 4) for x in 0..15, so that
-    mat[i,j]*b = lo[b & 15] ^ hi[b >> 4]."""
+#: the byte each entry of ``field_tables`` multiplies: fields of bits 0-2,
+#: 3-5 and 6-7, then padding (c*0 = 0)
+_FIELD_BYTES = np.zeros(TABLE_BYTES_PER_ENTRY, dtype=np.uint8)
+_FIELD_BYTES[:8] = np.arange(8)
+_FIELD_BYTES[8:16] = np.arange(8) << 3
+_FIELD_BYTES[16:20] = np.arange(4) << 6
+
+
+def field_tables(mat: np.ndarray) -> np.ndarray:
+    """[rows, n, 32] uint8: entry (i, j) holds TA[x] = c*x (bytes 0-7),
+    TB[x] = c*(x << 3) (bytes 8-15) and TC[x] = c*(x << 6) (bytes 16-19)
+    for c = mat[i, j], then 12 zero bytes, so that
+    c*b = TA[b & 7] ^ TB[(b >> 3) & 7] ^ TC[b >> 6]."""
     mat = np.ascontiguousarray(mat, dtype=np.uint8)
-    x = np.arange(16, dtype=np.uint8)
-    lo = GF_MUL_TABLE[mat[:, :, None], x[None, None, :]]
-    hi = GF_MUL_TABLE[mat[:, :, None], (x << 4)[None, None, :]]
-    return np.ascontiguousarray(np.concatenate([lo, hi], axis=2))
+    return np.ascontiguousarray(GF_MUL_TABLE[mat[:, :, None], _FIELD_BYTES[None, None, :]])
 
 
 # ---------------------------------------------------------------- build
@@ -155,7 +201,7 @@ def nibble_tables(mat: np.ndarray) -> np.ndarray:
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.gf_apply_k1_launch.argtypes = [p, i, i, p, i, ll, p, ll, p]
+    lib.gf_apply_k1_launch.argtypes = [p, i, i, p, p, i, ll, p, ll, i, i, p]
     lib.gf_apply_k1_launch.restype = i
     lib.gf_apply_k2_launch.argtypes = [p, i, i, i, p, i, ll, p, ll, p]
     lib.gf_apply_k2_launch.restype = i
@@ -216,22 +262,26 @@ def apply_matrix_plain(mat: np.ndarray, chunks: torch.Tensor) -> torch.Tensor:
 
 
 class Launch:
-    """One checked, prepared kernel launch: segment descriptors on the
-    device, output allocated.  Calling it launches the kernel into
-    ``out`` (again on each call), counts the launch and returns ``out``."""
+    """One checked, prepared kernel launch: segment descriptors staged,
+    output allocated.  Calling it launches the kernel into ``out`` (again
+    on each call) on the current stream of the output's device, counts
+    the launch and returns ``out``."""
 
     def __init__(self, name: str, args: tuple, out: torch.Tensor,
                  keep: tuple):
         self.name, self.out = name, out
+        lib = library()
+        self._fn = lib.gf_apply_k1_launch if name == "gf_apply_k1" else lib.gf_apply_k2_launch
         self._args = args
-        self._keep = keep  # tensors the kernel reads, alive while this is
+        self._index = out.device.index
+        self._keep = keep  # what the kernel reads, alive while this is
 
     def __call__(self) -> torch.Tensor:
-        lib = library()
-        fn = lib.gf_apply_k1_launch if self.name == "gf_apply_k1" else lib.gf_apply_k2_launch
-        dev = self.out.device
-        with torch.cuda.device(dev):
-            rc = fn(*self._args, torch.cuda.current_stream(dev).cuda_stream)
+        if torch.cuda.current_device() == self._index:
+            rc = self._fn(*self._args, torch.cuda.current_stream().cuda_stream)
+        else:
+            with torch.cuda.device(self._index):
+                rc = self._fn(*self._args, torch.cuda.current_stream().cuda_stream)
         if rc != 0:
             raise RuntimeError(f"{self.name} launch failed: CUDA error {rc}")
         LAUNCHES[self.name] += 1
@@ -301,16 +351,26 @@ def _prepare(mat: np.ndarray, segs: list[torch.Tensor],
         raise ValueError(f"{name} wants its operand as a contiguous {list(shape)} "
                          f"uint8 tensor on {dev} (device_operand)")
     desc, col = [], 0
-    for s in segs:
-        desc.append((s.data_ptr(), s.stride(0), s.shape[1], col))
-        col += s.shape[1]
-    desc_dev = torch.tensor(desc, dtype=torch.int64).pin_memory().to(
-        dev, non_blocking=True)
-    max_len = max(s.shape[1] for s in segs)
-    pitch = (shape[1],) if name == "gf_apply_k2" else ()
-    args = (tables.data_ptr(), rows, n, *pitch, desc_dev.data_ptr(), len(segs),
-            max_len, out.data_ptr(), total)
-    return Launch(name, args, out, (tables, desc_dev, *segs))
+    for seg in segs:
+        desc += (seg.data_ptr(), seg.stride(0), seg.shape[1], col)
+        col += seg.shape[1]
+    max_len = max(seg.shape[1] for seg in segs)
+    if name == "gf_apply_k1" and len(segs) <= K1_PARAM_SEGS:
+        # by value in the kernel's parameters: no copy to the card
+        host_desc, dev_desc, dev_ptr = (ctypes.c_longlong * len(desc))(*desc), None, None
+    else:
+        host_desc = None
+        dev_desc = torch.tensor(desc, dtype=torch.int64).pin_memory().to(
+            dev, non_blocking=True)
+        dev_ptr = dev_desc.data_ptr()
+    if name == "gf_apply_k1":
+        lay = k1_layout(max_len, len(segs), sm_count(dev))
+        args = (tables.data_ptr(), rows, n, host_desc, dev_ptr, len(segs), max_len,
+                out.data_ptr(), total, lay.threads, lay.vecs)
+    else:
+        args = (tables.data_ptr(), rows, n, shape[1], dev_ptr, len(segs), max_len,
+                out.data_ptr(), total)
+    return Launch(name, args, out, (tables, host_desc, dev_desc, *segs))
 
 
 def gf_apply(mat: np.ndarray, segments, tables: torch.Tensor | None = None,

@@ -11,7 +11,9 @@ source, all at once) and holds each against its plain PyTorch version.
 
 The erasure-code path (phases 3-9): the GF(2^8) kernels K1 and K2 (K2's
 SASS must hold IMMA, the tensor-core instruction of its bitplane
-product), then through the entry points a user calls, the RS(8,4) cauchy_good write of
+product; K1's row loop is found and counted in the SASS, and each K1 row
+logs the tile k1_layout chose and this build's ALU floor beside its
+byte bound), then through the entry points a user calls, the RS(8,4) cauchy_good write of
 256 objects of 1 MiB (256 MiB resident on the card) in one fused encode,
 their degraded read with shards {1, 4, 9, 11} lost, parity
 reconstruction, an RS(2,1) 128 MiB encode and decode, a SHEC(6,3,2)
@@ -95,6 +97,7 @@ from __future__ import annotations
 
 import collections
 import copy
+import functools
 import io
 import json
 import re
@@ -321,18 +324,30 @@ def loop_path(code) -> list[str]:
     return between(code, head, back)
 
 
-def pipe_counts(library: Path) -> dict[str, dict[str, int]]:
-    """Instructions on the INT32 pipe ("int32"), IMADs on the FMA pipe
-    ("imad") and all instructions ("all") per slot K3 walks
-    ("straw2_choose_kernel"), per trip of its group reduction
-    ("straw2_reduce") and per element of ln_scores, counted in the SASS of
-    `library` (cuobjdump, beside nvcc)."""
+@functools.lru_cache(maxsize=None)
+def library_sass(library: Path) -> dict[str, list[tuple[int, str]]]:
+    """The functions of `library`'s SASS (cuobjdump, beside nvcc)."""
     from ceph_tpu_torch.ops.nvcc import nvcc
 
     sass = subprocess.run([str(Path(nvcc()).parent / "cuobjdump"), "-sass", str(library)],
                           capture_output=True, text=True, check=True).stdout
+    return sass_functions(sass)
+
+
+def path_counts(path: list[str]) -> dict[str, int]:
+    """Instructions on the INT32 pipe ("int32"), IMADs on the FMA pipe
+    ("imad"), all instructions ("all") and PRMTs ("prmt") of a path."""
+    ops = collections.Counter(opcode(i) for i in path)
+    return {"int32": sum(n for op, n in ops.items() if op in INT32_PIPE),
+            "imad": ops["IMAD"], "all": sum(ops.values()), "prmt": ops["PRMT"]}
+
+
+def pipe_counts(library: Path) -> dict[str, dict[str, int]]:
+    """``path_counts`` per slot K3 walks ("straw2_choose_kernel"), per
+    trip of its group reduction ("straw2_reduce") and per element of
+    ln_scores, counted in the SASS of `library`."""
     counts = {}
-    for name, code in sass_functions(sass).items():
+    for name, code in library_sass(library).items():
         if "straw2_choose_kernel" in name:
             paths = dict(zip(("straw2_choose_kernel", "straw2_reduce"), k3_paths(code)))
         elif "ln_scores_kernel" in name:
@@ -340,12 +355,10 @@ def pipe_counts(library: Path) -> dict[str, dict[str, int]]:
         else:
             continue
         for kernel, path in paths.items():
-            ops = collections.Counter(opcode(i) for i in path)
-            c = counts[kernel] = {
-                "int32": sum(n for op, n in ops.items() if op in INT32_PIPE),
-                "imad": ops["IMAD"], "all": sum(ops.values())}
+            c = counts[kernel] = path_counts(path)
             log(f"    sass {kernel}: {c['all']} instructions per trip, {c['int32']} on the "
-                f"INT32 pipe, {c['imad']} IMAD; {dict(ops.most_common())}")
+                f"INT32 pipe, {c['imad']} IMAD; "
+                f"{dict(collections.Counter(opcode(i) for i in path).most_common())}")
     check(set(counts) == {"straw2_choose_kernel", "straw2_reduce", "ln_scores_kernel"},
           f"K3's kernels not found in the SASS of {library.name}: {sorted(counts)}")
     return counts
@@ -375,16 +388,76 @@ def k3_reduce_ms(counts: dict, lanes: int, T: int) -> float:
 
 def imma_count(library: Path) -> int:
     """IMMA instructions in gf_apply_k2's SASS in `library` (cuobjdump)."""
-    from ceph_tpu_torch.ops.nvcc import nvcc
-
-    sass = subprocess.run([str(Path(nvcc()).parent / "cuobjdump"), "-sass", str(library)],
-                          capture_output=True, text=True, check=True).stdout
-    codes = [code for name, code in sass_functions(sass).items() if "gf_apply_k2" in name]
+    codes = [code for name, code in library_sass(library).items() if "gf_apply_k2" in name]
     check(len(codes) == 1, f"gf_apply_k2 not found once in the SASS of {library.name}")
     ops = collections.Counter(opcode(i) for _, i in codes[0])
     log(f"    sass gf_apply_k2: {sum(ops.values())} instructions, {ops['IMMA']} IMMA; "
         f"{dict(ops.most_common(12))}")
     return ops["IMMA"]
+
+
+def k1_maxr(rows: int) -> int:
+    """The MAXR instantiation of gf_apply_k1 that a matrix of `rows` rows
+    launches (csrc gf_apply_k1_launch)."""
+    return rows if rows <= 2 else 4 if rows <= 4 else 8 if rows <= 8 else 16
+
+
+@functools.lru_cache(maxsize=None)
+def k1_loop_counts(library: Path) -> dict[int, dict[str, dict[str, int]]]:
+    """``path_counts`` of one trip of each of K1's two row loops, per MAXR
+    instantiation, in the SASS of `library`: the innermost loops with
+    16-byte loads and PRMT (the aligned path).  "trip": the one with more
+    PRMT, K1_RING input rows into MAXR output rows over one thread's 16
+    byte columns; "tail": the rows left over, one a trip.  Fails if an
+    instantiation lacks either, or if the trip does not hold its
+    3 x 4 x K1_RING x MAXR lookups."""
+    from ceph_tpu_torch.ops.gf_kernels import K1_RING
+
+    counts = {}
+    for name, code in library_sass(library).items():
+        m = re.search(r"gf_apply_k1ILi(\d+)E", name)
+        if not m:
+            continue
+        maxr = int(m.group(1))
+        loops = [between(code, h, b) for h, b in innermost_loops(code)]
+        found = sorted((ln for ln in loops if any(opcode(i) == "PRMT" for i in ln)
+                        and any(opcode(i) in ("LDG", "LD") and ".128" in i for i in ln)),
+                       key=lambda ln: path_counts(ln)["prmt"])
+        check(len(found) == 2, f"gf_apply_k1<{maxr}>: {len(found)} loops with 16-byte loads "
+                               f"and PRMT, want 2 (the row loop and its tail)")
+        tail, trip = (path_counts(ln) for ln in found)
+        counts[maxr] = {"trip": trip, "tail": tail}
+        check(trip["prmt"] >= 3 * 4 * K1_RING * maxr,
+              f"gf_apply_k1<{maxr}>'s row loop holds {trip['prmt']} PRMT, fewer than a "
+              f"trip's {3 * 4 * K1_RING * maxr} lookups")
+        log(f"    sass gf_apply_k1<{maxr}> row loop: {trip['all']} instructions a trip "
+            f"({K1_RING} input rows x 16 byte columns), {trip['int32']} on the INT32 pipe "
+            f"({trip['int32'] / 16:.1f} a byte column), {trip['imad']} IMAD, {trip['prmt']} "
+            f"PRMT; {dict(collections.Counter(opcode(i) for i in found[1]).most_common(10))}; "
+            f"tail {tail['int32']} INT32 a row")
+    check(set(counts) == {1, 2, 4, 8, 16}, f"K1's row loops not found in the SASS of "
+                                           f"{library.name}: {sorted(counts)}")
+    return counts
+
+
+def k1_note(rows: int, n: int, lens: list[int], dev) -> str:
+    """K1's tile at a launch (k1_layout) and its ALU floor in this build:
+    n // K1_RING trips of the row loop and n % K1_RING of its tail
+    (k1_loop_counts) per 16 byte columns, at the slowest of the INT32
+    pipe, IMADs and issue.  The kernel computes all MAXR rows, so the
+    count is the build's work at any rows; vectors at a segment's ragged
+    end take the unaligned path, which the count does not see."""
+    from ceph_tpu_torch.ops import gf_kernels as gk
+
+    lay = gk.k1_layout(max(lens), len(lens), gk.sm_count(dev))
+    c = k1_loop_counts(gk.LIBRARY.path())[k1_maxr(rows)]
+    trips, tail = divmod(n, gk.K1_RING)
+    vectors = sum(-(-L // 16) for L in lens)
+    floor = ops_ms((vectors * trips, c["trip"]), (vectors * tail, c["tail"]))
+    per_col = (trips * c["trip"]["int32"] + tail * c["tail"]["int32"]) / 16
+    return (f"tile {lay.threads} threads x {lay.vecs} x 16 B = {lay.tile_cols} columns, "
+            f"{lay.col_tiles * len(lens)} blocks; ALU floor {floor:.4g} ms "
+            f"({per_col:.1f} INT32 a byte column in this build)")
 
 
 #: K3's edge cases, (name, S, n_idx, P, B): B across K3's thread choices
@@ -970,8 +1043,8 @@ def osd_slice(torch, dev, card: str, smi: str, rs84, stripes, objects, si) -> li
     bound = bound_ms(4, 8, L)
     log(f"[19 breakdown] pack into pinned staging {np.median(pack_ms):.2f} ms (host), "
         f"commit 256 MiB {h2d_ms:.2f} ms, K1 {ms:.4f} ms (bound {bound:.4f} ms by bytes, "
-        f"plain {plain_ms:.2f} ms), fetch 128 MiB {d2h_ms:.2f} ms; the batcher's flush "
-        f"{flush_s * 1e3:.1f} ms")
+        f"plain {plain_ms:.2f} ms; {k1_note(4, 8, [L], dev)}), fetch 128 MiB "
+        f"{d2h_ms:.2f} ms; the batcher's flush {flush_s * 1e3:.1f} ms")
     return [{
         "name": "gf_apply_k1", "route": "cuda", "source": "ceph_tpu_torch/csrc/gf_apply.cu",
         "replaces": "ceph_tpu/ops/pallas_gf.py:184", "launches": launches,
@@ -1635,18 +1708,23 @@ def cluster_slice(torch, dev, card: str, smi: str) -> list[dict]:
         check(err == 0, f"{name} disagrees with the plain version at {shape}")
         ms, host_ms = time_ms(torch, gf_kernels.prepare(mat, [x], tables), iters=20,
                               label=f"{name} at {shape} (staged launch)")
+        wrapper_ms, wrapper_host_ms = time_ms(
+            torch, lambda: gf_apply(mat, [x], tables=tables), iters=20,
+            label=f"gf_apply at {shape}")
         plain_ms, _ = time_ms(torch, lambda: apply_matrix_plain(mat, x), iters=3, warmup=1)
         bound = bound_ms(*mat.shape, cols)
         entries.append({
             "name": name, "route": "cuda", "source": "ceph_tpu_torch/csrc/gf_apply.cu",
             "replaces": replaces, "launches": total[name], "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes", "library_ms": None,
-            "host_ms": host_ms, "shape": shape,
+            "wrapper_ms": wrapper_ms, "host_ms": host_ms, "wrapper_host_ms": wrapper_host_ms,
+            "shape": shape,
             "launches_by_phase": {p: v[name] for p, v in per_phase.items()},
             "card": card, "nvidia_smi": smi,
         })
-        log(f"[29 {name}] {shape}: {ms:.4f} ms, bound {bound:.4f} ms by bytes, "
-            f"plain {plain_ms:.3f} ms")
+        note = f"; {k1_note(*mat.shape, [cols], dev)}" if name == "gf_apply_k1" else ""
+        log(f"[29 {name}] {shape}: {ms:.4f} ms, bound {bound:.4f} ms by bytes{note}, "
+            f"wrapper {wrapper_ms:.4f} ms, plain {plain_ms:.3f} ms")
     return entries
 
 
@@ -1709,6 +1787,10 @@ def main() -> int:
             if "registers" in line or "spill" in line or "Compiling" in line:
                 log(f"    ptxas {lib.source.name}: {line.strip()}")
     check(imma_count(gf_kernels.LIBRARY.path()) > 0, "gf_apply_k2's SASS holds no IMMA")
+    k1_loop_counts(gf_kernels.LIBRARY.path())
+    log(f"[2 build] K1: tiles (threads, vecs) {gf_kernels.K1_TILES}, the largest with two "
+        f"blocks an SM (k1_layout); up to {gf_kernels.K1_PARAM_SEGS} segment descriptors "
+        f"by value")
 
     def against_plain(mat, x, want_kernel: str) -> None:
         check(kernel_for(*mat.shape) == want_kernel,
@@ -1729,7 +1811,8 @@ def main() -> int:
                       ("RS(8,4) decode", dm84)):
         x = rand_bytes(torch, (mat.shape[1], 3000), SEED + mat.size, dev)
         against_plain(mat, x, "gf_apply_k1")
-        log(f"[3 K1] {name} {mat.shape} x L=3000: bytes equal")
+        log(f"[3 K1] {name} {mat.shape} x L=3000: bytes equal; "
+            f"{k1_note(*mat.shape, [3000], dev)}")
 
     # 4. K2 against the plain version, CLAY(12,4,d=15)'s [256, 960] repair too
     clay = reg.factory({"plugin": "clay", "k": "8", "m": "4"})
@@ -1868,7 +1951,8 @@ def main() -> int:
         })
         log(f"[9 {name}] {shape}: {ms:.4f} ms ({moved / (ms * 1e-3) / 2**30:.1f} GiB/s "
             f"moved), bound {bound:.4f} ms by bytes"
-            + (f", tensor-core floor {tc['tc_floor_ms']:.4f} ms" if tc else "")
+            + (f", tensor-core floor {tc['tc_floor_ms']:.4f} ms" if tc else
+               f"; {k1_note(rows, n, [s.shape[1] for s in segs], dev)}")
             + f", wrapper {wrapper_ms:.4f} ms, plain {plain_ms:.3f} ms")
     kernels += crush_slice(torch, dev, card, smi)
     kernels += osd_slice(torch, dev, card, smi, rs84, stripes, objects, si)

@@ -102,6 +102,17 @@ def time_ms(fn, iters: int = 30) -> float:
     return float(np.median([a.elapsed_time(b) for a, b in ev]))
 
 
+def old_tables(mat: np.ndarray) -> np.ndarray:
+    """The split-nibble tables commit 9166054's K2 reads, [rows, n, 32]:
+    lo[x] = c*x and hi[x] = c*(x << 4) for x in 0..15."""
+    from ceph_tpu_torch.gf.tables import GF_MUL_TABLE
+
+    x = np.arange(16, dtype=np.uint8)
+    mat = np.ascontiguousarray(mat, dtype=np.uint8)[:, :, None]
+    return np.ascontiguousarray(np.concatenate(
+        [GF_MUL_TABLE[mat, x[None, None]], GF_MUL_TABLE[mat, (x << 4)[None, None]]], axis=2))
+
+
 def old_layout(rows: int, n: int) -> tuple[int, int]:
     """(band_rows, chunk_rows) as commit 9166054's gf_kernels.k2_layout."""
     band = min(rows, 16)
@@ -179,7 +190,7 @@ def main() -> int:
         plain = gk.apply_matrix_plain(mat, x)
         desc = torch.tensor([[x.data_ptr(), x.stride(0), L, 0]], dtype=torch.int64, device=dev)
         op = torch.from_numpy(gk.k2_operand(mat)).to(dev)
-        tables = torch.from_numpy(gk.nibble_tables(mat)).to(dev)
+        tables = torch.from_numpy(old_tables(mat)).to(dev)
         runs = {"new": gk.prepare(mat, [x], op)}
         outs = {"new": runs["new"].out}
         for key, lib in libs.items():

@@ -1,5 +1,9 @@
 """The port's CUDA kernels on the card against their plain PyTorch
-versions, byte for byte, at edge-case shapes: K1 and K2 (ragged lengths,
+versions, byte for byte, at edge-case shapes: K1 at each tile k1_layout
+chooses (lengths one below, at and one past a tile boundary), rows 1 to
+16 and n up to the K1/K2 rule's edge, with its segment descriptors by
+value and from a device array (at K1_PARAM_SEGS and one past it); K1 and
+K2 (ragged lengths,
 unaligned and strided rows, several segments in one launch, 333 of them
 for K2; K2 at rows around its 8-row tiles, n around its 4-row k-steps
 and 64-row stages, L one short of and one past its 64-column warp
@@ -21,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+from ceph_tpu_torch.common.device import sm_count
 from ceph_tpu_torch.gf.matrix import cauchy_good_coding_matrix
 from ceph_tpu_torch.gf.reference_codec import apply_matrix as apply_ref
 from ceph_tpu_torch.ops import gf_kernels
@@ -141,6 +146,68 @@ def test_prepared_launch_repeats(cuda):
     torch.cuda.synchronize()
     assert gf_kernels.LAUNCHES["gf_apply_k1"] == before + 2
     assert torch.equal(first, second) and torch.equal(second, gf_apply(mat, segs))
+
+
+# ---- K1: its tiles, its rows and depth, its descriptor routes ----
+
+
+def _k1_matches_plain(mat, segs):
+    before = gf_kernels.LAUNCHES["gf_apply_k1"]
+    out = gf_apply(mat, segs)
+    want = apply_matrix_plain(mat, torch.cat(segs, dim=1).contiguous())
+    torch.cuda.synchronize()
+    assert gf_kernels.LAUNCHES["gf_apply_k1"] == before + 1
+    assert torch.equal(out, want)
+
+
+@pytest.mark.parametrize("tile", [16 * t * v for t, v in gf_kernels.K1_TILES])
+@pytest.mark.parametrize("delta", [-1, 0, 1])
+def test_k1_each_tile_at_its_boundary(cuda, tile, delta):
+    """K1 at each tile k1_layout chooses, at a length one below, at and
+    one past a multiple of the tile (two tiles an SM), RS(8,4)'s encode
+    and decode shapes."""
+    sms = sm_count(cuda)
+    L = 2 * sms * tile + delta
+    rng = np.random.default_rng(tile + delta)
+    x = torch.from_numpy(_rand(rng, (8, L))).to(cuda)
+    for rows in (4, 8):
+        assert gf_kernels.k1_layout(L, 1, sms).tile_cols == tile
+        _k1_matches_plain(_rand(rng, (rows, 8)), [x])
+
+
+@pytest.mark.parametrize("rows", [1, 2, 3, 4, 5, 7, 8, 9, 12, 16])
+def test_k1_rows_and_depth(cuda, rows):
+    """Rows 1 to 16 (each MAXR instantiation, full and partial), n from 1
+    through a trip of K1_RING rows and one past it up to the K1/K2 rule's
+    edge, rows * n = 512; a ragged length."""
+    rng = np.random.default_rng(rows)
+    edge = 512 // rows
+    assert kernel_for(rows, edge) == "gf_apply_k1"
+    assert kernel_for(rows, edge + 1) == "gf_apply_k2"
+    for n in sorted({1, 2, 7, 8, 9, 16, 17, edge}):
+        if n <= edge:
+            x = torch.from_numpy(_rand(rng, (n, 4099))).to(cuda)
+            _k1_matches_plain(_rand(rng, (rows, n)), [x])
+
+
+@pytest.mark.parametrize("nseg", [1, gf_kernels.K1_PARAM_SEGS, gf_kernels.K1_PARAM_SEGS + 1, 256])
+@pytest.mark.parametrize("shape", [(4, 8), (8, 8), (13, 5)])
+def test_k1_descriptor_routes(cuda, nseg, shape):
+    """Segment descriptors by value in K1's parameters (up to
+    K1_PARAM_SEGS) and from a device array (past it): unaligned offsets,
+    a row-strided view, ragged and empty segments in one launch."""
+    rows, n = shape
+    rng = np.random.default_rng(nseg * 100 + rows)
+    mat = _rand(rng, (rows, n))
+    base = torch.from_numpy(_rand(rng, (2 * n, 20011))).to(cuda)
+    flat, strided = base[:n], base[::2]  # strided: a row stride of 2 x 20011
+    pool = [flat[:, 0:16384], strided[:, 16:8208], flat[:, 1:4097], flat[:, 4100:4100],
+            strided[:, 3:3000], flat[:, 9999:20011]]
+    segs = pool[:nseg]
+    for start, length in zip(rng.integers(0, 19800, nseg - len(segs)),
+                             rng.integers(0, 200, nseg - len(segs))):
+        segs.append((flat if start % 2 else strided)[:, start:start + length])
+    _k1_matches_plain(mat, segs)
 
 
 # ---- K3 and the crush_ln probe (ceph_tpu_torch/ops/crush_kernels.py) ----

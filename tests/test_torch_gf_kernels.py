@@ -2,7 +2,7 @@
 JAX package's Pallas kernel and the numpy reference codec.
 
 On the CPU the wrapper runs the plain PyTorch version, so these hold the
-plain version (and the host-side parts of the kernels: split-nibble
+plain version (and the host-side parts of the kernels: K1's bit-field
 tables, the K1/K2 rule, K2's operand and grid) to the reference.  K2's
 arithmetic runs here in its operand's own order and padding.  The Pallas kernel
 runs in interpret mode, as tests/test_pallas.py runs it, on the cases of
@@ -31,8 +31,8 @@ from ceph_tpu_torch.ops.gf_kernels import (
     gf_apply,
     k2_layout,
     k2_operand,
+    field_tables,
     kernel_for,
-    nibble_tables,
     operand_shape,
 )
 
@@ -105,12 +105,14 @@ def test_ragged_rows_match_blocked_pallas(monkeypatch):
 
 
 def test_nibble_tables_multiply_every_byte():
-    """lo[b & 15] ^ hi[b >> 4] == c * b for every entry c and byte b."""
+    """K1's tables (``field_tables``, which replaced the split-nibble
+    tables): TA[b & 7] ^ TB[(b >> 3) & 7] ^ TC[b >> 6] == c * b for every
+    entry c and byte b."""
     mat = np.arange(256, dtype=np.uint8).reshape(16, 16)
-    tab = nibble_tables(mat)
+    tab = field_tables(mat)
     assert tab.shape == (16, 16, 32) and tab.dtype == np.uint8
     b = np.arange(256)
-    prod = tab[:, :, b & 15] ^ tab[:, :, 16 + (b >> 4)]
+    prod = tab[:, :, b & 7] ^ tab[:, :, 8 + ((b >> 3) & 7)] ^ tab[:, :, 16 + (b >> 6)]
     np.testing.assert_array_equal(prod, GF_MUL_TABLE[mat[:, :, None], b[None, None, :]])
 
 
@@ -204,7 +206,7 @@ def test_device_operand_follows_the_rule(shape):
     mat = np.random.default_rng(shape[0]).integers(0, 256, shape, np.uint8)
     op = device_operand(mat)
     assert op.shape == operand_shape(*shape)
-    want = nibble_tables(mat) if kernel_for(*shape) == "gf_apply_k1" else k2_operand(mat)
+    want = field_tables(mat) if kernel_for(*shape) == "gf_apply_k1" else k2_operand(mat)
     np.testing.assert_array_equal(op, want)
 
 
