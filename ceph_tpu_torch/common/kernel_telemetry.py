@@ -400,7 +400,9 @@ def _forced_device_rows(ok: bool, reason: str | None) -> list[dict]:
 def probe_device_rows() -> list[dict]:
     """Per-device probe rows: one entry per CUDA device with verdict +
     round-trip latency (a tiny host-to-device copy followed by
-    ``torch.cuda.synchronize``).  Runs INSIDE the sentinel's disposable
+    ``torch.cuda.synchronize``), or one ``cpu:0`` row on a host with no
+    card, where the daemons run on the CPU (as jax lists its CPU devices
+    when it has no accelerator).  Runs INSIDE the sentinel's disposable
     probe worker — a wedged device hangs the worker, never a caller.
     The ``CEPH_TPU_SENTINEL_STATE`` override synthesizes rows without
     touching the card (the CI simulated wedge)."""
@@ -413,17 +415,21 @@ def probe_device_rows() -> list[dict]:
     import torch
 
     rows = []
-    for i in range(torch.cuda.device_count()):
+    n_cuda = torch.cuda.device_count()
+    for i in range(max(n_cuda, 1)):
         t0 = time.perf_counter()
         try:
-            torch.zeros(8, dtype=torch.uint8).to(f"cuda:{i}")
-            torch.cuda.synchronize(i)
+            if n_cuda:
+                torch.zeros(8, dtype=torch.uint8).to(f"cuda:{i}")
+                torch.cuda.synchronize(i)
+            else:
+                torch.zeros(8, dtype=torch.uint8).clone()
             ok, err = True, None
         except Exception as e:  # one sick device must not hide the rest
             ok, err = False, f"{type(e).__name__}: {e}"
         rows.append({
-            "device": f"cuda:{i}",
-            "platform": "cuda",
+            "device": f"cuda:{i}" if n_cuda else "cpu:0",
+            "platform": "cuda" if n_cuda else "cpu",
             "ok": ok,
             "latency_ms": (time.perf_counter() - t0) * 1e3,
             "error": err,

@@ -24,10 +24,13 @@ C oracle, which the port does not load yet.  The scalar
 """
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
 from ..common.device import resolve_device
+from ..common.kernel_telemetry import TELEMETRY
 from ..ops import crush_kernels
 from .batched import I64Engine, choose_firstn_b, choose_indep_b
 from .types import ITEM_NONE, CrushMap, RuleOp
@@ -316,7 +319,14 @@ def crush_do_rule_batch(
         xs_t = torch.from_numpy(np.asarray(xs, dtype=np.int64).astype(np.int32)).to(dev)
     N = xs_t.shape[0]
     chunk_n = _chunk_xs(dev, plan)
+    t0 = time.perf_counter()
     if N <= chunk_n:
-        return _run_plan(plan, eng, xs_t, numrep)
-    return torch.cat([_run_plan(plan, eng, xs_t[lo:lo + chunk_n], numrep)
-                      for lo in range(0, N, chunk_n)])
+        out = _run_plan(plan, eng, xs_t, numrep)
+    else:
+        out = torch.cat([_run_plan(plan, eng, xs_t[lo:lo + chunk_n], numrep)
+                         for lo in range(0, N, chunk_n)])
+    # dispatch-side wall time, by the device that ran it (K3 on cuda,
+    # its plain version on cpu), as the reference records its backend
+    TELEMETRY.record("crush_do_rule_batch", dev.type, time.perf_counter() - t0,
+                     bytes_in=4 * N, bytes_out=4 * out.numel())
+    return out

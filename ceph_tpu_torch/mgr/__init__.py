@@ -1,6 +1,5 @@
-"""ceph_tpu_torch.mgr — the manager plane's port (reference: ceph_tpu/mgr).
+"""Manager plane (reference: src/mgr + src/pybind/mgr; SURVEY.md §2.5)."""
+from .daemon import MgrDaemon
+from .module import MgrModule, MODULE_REGISTRY
 
-Ported so far: the mgr's wire message types (mgr/messages.py).  MgrDaemon,
-MgrModule and MODULE_REGISTRY, which the reference package's __init__
-exports, come with the mgr's own slice.
-"""
+__all__ = ["MgrDaemon", "MgrModule", "MODULE_REGISTRY"]

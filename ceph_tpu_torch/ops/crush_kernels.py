@@ -44,7 +44,7 @@ from ..crush.hash import crush_hash32_3
 from ..crush.ln_table import CRUSH_LN_TABLE, LL_TBL, LN_BIAS, RH_LH_TBL
 from ..crush.magic_div import join_limbs, magic_tables
 from ..crush.types import ITEM_NONE
-from .nvcc import NvccLibrary
+from .nvcc import KernelError, NvccLibrary
 
 KERNELS = ("crush_straw2_k3", "crush_ln_scores_k3",
            "crush_ln_stream_compute", "crush_ln_stream_table")
@@ -144,7 +144,7 @@ def _launch(name: str, fn, *args) -> None:
     dev = torch.cuda.current_device()
     rc = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+        raise KernelError(f"{name} launch failed: CUDA error {rc}")
     LAUNCHES[name] += 1
 
 

@@ -38,7 +38,7 @@ import torch
 from ..common.device import sm_count
 from ..gf.matrix import matrix_to_bitmatrix
 from ..gf.tables import GF_MUL_TABLE
-from .nvcc import NvccLibrary
+from .nvcc import KernelError, NvccLibrary
 
 #: accumulators a thread of K1 keeps: a K1 matrix has at most this many
 #: rows (csrc: the largest MAXR instantiation)
@@ -283,7 +283,7 @@ class Launch:
             with torch.cuda.device(self._index):
                 rc = self._fn(*self._args, torch.cuda.current_stream().cuda_stream)
         if rc != 0:
-            raise RuntimeError(f"{self.name} launch failed: CUDA error {rc}")
+            raise KernelError(f"{self.name} launch failed: CUDA error {rc}")
         LAUNCHES[self.name] += 1
         return self.out
 

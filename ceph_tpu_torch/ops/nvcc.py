@@ -26,6 +26,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
+class KernelError(RuntimeError):
+    """A hand-written kernel that did not build or launch.  Callers that
+    keep a loop alive across other errors let this one through: nothing
+    turns a failed kernel into another path or a counted hiccup."""
+
+
 def nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -33,7 +39,7 @@ def nvcc() -> str:
     cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
     if cand.exists():
         return str(cand)
-    raise RuntimeError("nvcc not found: the port's kernels need the CUDA toolkit")
+    raise KernelError("nvcc not found: the port's kernels need the CUDA toolkit")
 
 
 class NvccLibrary:
@@ -67,7 +73,7 @@ class NvccLibrary:
                     capture_output=True, text=True)
                 self.build_log = proc.stdout + proc.stderr
                 if proc.returncode != 0:
-                    raise RuntimeError(
+                    raise KernelError(
                         f"nvcc failed on {self.source.name} ({proc.returncode}):\n"
                         f"{self.build_log}")
                 os.replace(tmp, path)

@@ -251,6 +251,8 @@ class OSD(
         self._tick_thread: threading.Thread | None = None
         self._hb_failures: dict[int, int] = {}
         self._hb_reported: set[int] = set()  # peers we told the mon are down
+        self._addr: tuple | None = None       # set once the first boot is acked
+        self._reboot_thread: threading.Thread | None = None
         self._codecs: dict[str, object] = {}
         self._recovery_wakeup = threading.Event()
         # mClock QoS dispatch (reference: osd_mclock_profile
@@ -517,31 +519,8 @@ class OSD(
         self.messenger.start()
         self.mc.subscribe_osdmap(callback=self._on_map)
         self.mc.fetch_config(self.cct)  # central config (mon db)
-        # resend boot until the map shows our address (reference: OSD
-        # re-sends MOSDBoot until it sees itself up) — a boot riding a
-        # connection that resets mid-handshake would otherwise be lost
-        deadline = time.monotonic() + 30.0
-        min_epoch = 1
-        while True:
-            try:
-                self.mc.send_boot(self.id, addr)
-            except (OSError, ConnectionError):
-                pass
-            try:
-                m = self.mc.wait_for_osdmap(min_epoch=min_epoch, timeout=2.0)
-            except TimeoutError:
-                m = self.mc.osdmap
-            if m is not None:
-                if tuple(m.osd_addrs.get(self.id) or ()) == tuple(addr):
-                    self.osdmap = m
-                    break
-                # wait for a NEWER epoch next round so the retry loop
-                # blocks instead of spinning on the same stale map
-                min_epoch = m.epoch + 1
-            if time.monotonic() >= deadline:
-                raise TimeoutError(
-                    f"{self.whoami}: boot not acknowledged in 30s"
-                )
+        self.osdmap = self._boot(addr)
+        self._addr = addr
         self._load_pgs()
         # cephdma: device stripe pool sized/armed from THIS daemon's
         # conf (process-wide like the sentinel — first daemon at boot
@@ -691,6 +670,10 @@ class OSD(
             t.join(timeout=5)
         if self._tick_thread is not None:
             self._tick_thread.join(timeout=5)
+        with self._lock:
+            reboot = self._reboot_thread
+        if reboot is not None:
+            reboot.join(timeout=5)
         try:
             self.read_batcher.stop()
         except Exception as e:
@@ -733,10 +716,70 @@ class OSD(
         # (perf dump, failpoints) right up until the daemon is gone
         self.cct.shutdown()
 
+    def _boot(self, addr: tuple) -> OSDMap | None:
+        """Resend boot until a map shows this OSD up at `addr`, and
+        return that map (None if the OSD stops first; reference: OSD
+        re-sends MOSDBoot until it sees itself up) — a boot riding a
+        connection that resets mid-handshake would otherwise be lost."""
+        deadline = time.monotonic() + 30.0
+        min_epoch = 1
+        while not self._stop.is_set():
+            try:
+                self.mc.send_boot(self.id, addr)
+            except (OSError, ConnectionError):
+                pass
+            try:
+                m = self.mc.wait_for_osdmap(min_epoch=min_epoch, timeout=2.0)
+            except TimeoutError:
+                m = self.mc.osdmap
+            if m is not None:
+                if (m.is_up(self.id) and
+                        tuple(m.osd_addrs.get(self.id) or ()) == tuple(addr)):
+                    return m
+                # wait for a NEWER epoch next round so the retry loop
+                # blocks instead of spinning on the same stale map
+                min_epoch = m.epoch + 1
+            if time.monotonic() >= deadline:
+                raise TimeoutError(
+                    f"{self.whoami}: boot not acknowledged in 30s"
+                )
+        return None
+
+    def _reboot(self) -> None:
+        try:
+            self._boot(self._addr)
+        except TimeoutError as e:
+            self.cct.dout("osd", 0, f"{self.whoami}: re-boot failed: {e}")
+        finally:
+            with self._lock:
+                self._reboot_thread = None
+
+    def _check_wrongly_down(self, m: OSDMap) -> None:
+        """A map that shows this running OSD down, at its own address or
+        none, came from failure reports that outlived an earlier
+        incarnation (peers count silent pings across a kill and revive):
+        boot again (reference: OSD::handle_osd_map's "wrongly marked me
+        down" and start_boot).  The boot loop waits for maps, which
+        arrive on this callback's thread, so it runs on its own."""
+        if self._addr is None or self._stop.is_set() or m.is_up(self.id):
+            return
+        at = m.osd_addrs.get(self.id)
+        if at is not None and tuple(at) != tuple(self._addr):
+            return
+        with self._lock:
+            if self._reboot_thread is not None:
+                return
+            self.cct.dout("osd", 0, f"{self.whoami}: map e{m.epoch} wrongly "
+                                    "marked me down; booting again")
+            self._reboot_thread = threading.Thread(
+                target=self._reboot, name=f"{self.whoami}-reboot", daemon=True)
+            self._reboot_thread.start()
+
     # -- map handling ------------------------------------------------------
     def _on_map(self, m: OSDMap) -> None:
         old = self.osdmap
         self.osdmap = m
+        self._check_wrongly_down(m)
         if old is not None:
             # interval bookkeeping (same_interval_since): a PG whose
             # up/acting changed starts a NEW interval at this epoch

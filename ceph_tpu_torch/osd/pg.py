@@ -58,6 +58,10 @@ class PGState:
         # store walk); the push helpers decrement as objects land so a
         # long backfill drains visibly between passes
         self.stat_degraded_peers = 0
+        # the port's idle-pass skip (osd/recovery.py, CLEAN_REPOLL_S):
+        # what this PG's last clean recovery pass saw, and when
+        self.clean_key: tuple | None = None
+        self.clean_at = 0.0
         # newest map epoch under which this PG logged a write (persisted
         # with the log): a revived OSD uses it as the starting point to
         # REBUILD interval history from the mon's old maps — intervals

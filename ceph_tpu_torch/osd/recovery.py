@@ -32,6 +32,23 @@ from ..osd.osdmap import PG_POOL_ERASURE
 from ..osd.osdmap import OSDMap  # noqa: F401 (annotations)
 from .pg import _current_generation, PGState
 
+#: seconds a PG whose last recovery pass found it clean goes unqueried
+#: while nothing that could unclean it has changed: its interval and
+#: activation, its version, the pool's pg_num, its acting set and those
+#: members' addresses (a revived OSD comes back at a new one).  Every
+#: primary's pass otherwise queries every peer of every PG each second,
+#: which in a LocalCluster of 12 OSDs holds the interpreter lock so busy
+#: that a mgr's placement scan took minutes (PERF.md, PR 10).  A peer
+#: that loses data with none of those changing is found within this
+#: many seconds, or by scrub.
+CLEAN_REPOLL_S = 30.0
+
+
+def _clean_key(pg: PGState, pool, acting: list[int], m) -> tuple:
+    return (pg.interval_start, pg.activated_interval, pg.version,
+            pool.pg_num, tuple(acting),
+            tuple(tuple(m.osd_addrs.get(o) or ()) for o in acting))
+
 
 def prune_costly_helpers(avail: set[int], acting: list[int],
                          my_shard: int, peer_load: dict,
@@ -78,6 +95,9 @@ class RecoveryMixin:
                 if primary != self.id or self.id not in acting:
                     continue
                 pg = self._pg(pool_id, ps)
+                if (pg.clean_key == _clean_key(pg, pool, acting, m)
+                        and time.monotonic() - pg.clean_at < CLEAN_REPOLL_S):
+                    continue
                 # NO pg.lock here: _recover_pg's pull phase waits on the
                 # donor's sub-writes, which our dispatch thread can only
                 # apply after taking pg.lock — holding it across the pull
@@ -236,6 +256,8 @@ class RecoveryMixin:
                           acting: list[int]) -> None:
         is_ec = pool.type == PG_POOL_ERASURE
         codec = self._codec_for_pool(pool) if is_ec else None
+        pg.clean_key = None
+        m_entry, version_at_entry = self.osdmap, pg.version
         # one query round: peer versions + object lists drive the
         # authoritative-log pull, the per-peer classification, and
         # delete propagation
@@ -411,8 +433,14 @@ class RecoveryMixin:
         # peered: no peer is ahead (or we just adopted the ahead log) —
         # this primary may now serve ops for the current interval
         pg.activated_interval = interval_at_entry
+        acting_members = {o for o in acting if o >= 0 and o != self.id}
+        answered = acting_members <= {osd for (_s, osd) in peers}
         if pg.version == 0:
-            return  # nothing written yet
+            # nothing written yet; clean if no peer holds anything either
+            if answered and not any(v or oids for v, oids in peers.values()):
+                self._mark_clean(pg, pool, acting, m_entry, version_at_entry,
+                                 interval_at_entry)
+            return
         my_shard = acting.index(self.id) if is_ec else 0
         my_cid = self._cid(pg.pgid, my_shard)
 
@@ -530,6 +558,9 @@ class RecoveryMixin:
                     )
         if all_clean:
             pg.stat_degraded_peers = 0
+        if all_clean and answered:
+            self._mark_clean(pg, pool, acting, m_entry, version_at_entry,
+                             interval_at_entry)
         # prune the interval history once the PG is CLEAN in the current
         # interval (reference: last_epoch_clean).  "Clean" demands a
         # FULL acting set in which every member answered and needed no
@@ -540,11 +571,10 @@ class RecoveryMixin:
         # later primary rebuilding from a replica's stale last-write
         # epoch would resurrect already-settled intervals whose members
         # are long gone and block activation forever (review r4).
-        acting_members = {o for o in acting if o >= 0 and o != self.id}
         if (
             all_clean
             and all(o >= 0 for o in acting)
-            and acting_members <= {osd for (_s, osd) in peers}
+            and answered
             and (pg.past_intervals
                  or pg.clean_broadcast_interval != interval_at_entry)
         ):
@@ -570,6 +600,17 @@ class RecoveryMixin:
                     ))
                 except (OSError, ConnectionError):
                     pass  # replica re-learns at its next clean pass
+
+    def _mark_clean(self, pg: PGState, pool, acting: list[int], m_entry,
+                    version_at_entry: int, interval_at_entry: int) -> None:
+        """Let the idle passes skip this PG (CLEAN_REPOLL_S) unless a
+        write, an interval change or a map landed during this pass."""
+        if pg.version != version_at_entry or not (
+                pg.interval_start == pg.activated_interval == interval_at_entry):
+            return
+        key = _clean_key(pg, pool, acting, m_entry)
+        if key == _clean_key(pg, pool, acting, self.osdmap):
+            pg.clean_key, pg.clean_at = key, time.monotonic()
 
     def _push_missing(self, pg, codec, acting, dest_shard, dest_osd,
                       from_version, is_ec, dest_oids) -> bool:

@@ -248,6 +248,12 @@ class SplitMigrationMixin:
         pg_info: dict[str, dict] = {}
         m = self.osdmap
         if m is not None:
+            from .daemon import _placed
+
+            # the shared placements of this map (daemon._placements_of):
+            # a scalar CRUSH descent per PG per report, in every OSD of
+            # the process, starved the cluster of the interpreter lock
+            memo = self._memo_for(m)
             with self._pgs_lock:
                 snapshot = list(self.pgs.values())
             for pg in snapshot:
@@ -255,8 +261,7 @@ class SplitMigrationMixin:
                 if pool is None:
                     continue
                 try:
-                    up, _upp, acting, prim = m.pg_to_up_acting_osds(
-                        pg.pool_id, pg.ps)
+                    up, _upp, acting, prim = _placed(memo, pg.pool_id, pg.ps)
                 except (KeyError, IndexError, ValueError):
                     continue
                 if prim != self.id:

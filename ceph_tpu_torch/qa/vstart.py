@@ -3,8 +3,8 @@ localhost sockets, with kill/revive for thrash tests (reference:
 src/vstart.sh; qa/standalone/ceph-helpers.sh `run_mon`/`run_osd`/
 `kill_daemons`; SURVEY.md §4 ring 2).  The port's counterpart of
 ceph_tpu/qa/vstart.py: the cluster takes its ``device`` once (``cuda``
-unless ``device="cpu"``) and hands it to every daemon's CephContext and
-to the initial OSDMap.
+unless ``device="cpu"``) and hands it to every daemon's CephContext (the
+mgr's too, with ``with_mgr=True``) and to the initial OSDMap.
 
     with LocalCluster(n_mons=3, n_osds=6) as c:
         c.create_ec_pool("ecpool", k=4, m=2)      # plugin=torch
@@ -64,14 +64,12 @@ class LocalCluster:
         a crash (no unmount) and revive_osd constructs a FRESH store
         from the same directory — real WAL replay + fsck on mount
         (reference: qa/standalone restarts daemons from disk)."""
-        if with_mgr:
-            raise NotImplementedError(
-                "with_mgr: the mgr daemon is not ported yet (ROADMAP queue 1 "
-                "item 3)")
         if with_mds:
             raise NotImplementedError(
                 "with_mds: CephFS is not ported yet (ROADMAP queue 1 item 8)")
         self.device = resolve_device(device)
+        self.with_mgr = with_mgr
+        self.mgr = None
         self.n_mons = n_mons
         self.n_osds = n_osds
         self.hosts = hosts or n_osds  # default: one OSD per host bucket
@@ -112,6 +110,17 @@ class LocalCluster:
         # re-elects: wait until every mon follows one leader whose map
         # has committed, so no election meets the first command
         self._wait("no settled mon quorum", self._quorum_settled)
+        if self.with_mgr:
+            from ..mgr import MgrDaemon
+
+            # after the mons and before the OSDs, so that the OSDs'
+            # contexts read mgr_addr
+            self.mgr = MgrDaemon(self._cct("mgr"), self.mon_addrs)
+            self.mgr.start()
+            # daemons stream MMgrReport here (MgrMap-analog wiring)
+            self.conf_overrides["mgr_addr"] = (
+                f"{self.mgr.addr[0]}:{self.mgr.addr[1]}"
+            )
         for i in range(self.n_osds):
             self._start_osd(i)
         self._wait(f"not all {self.n_osds} OSDs up", self._osds_up)
@@ -182,6 +191,8 @@ class LocalCluster:
             self._stop_quietly("client cct", c.cct.shutdown)
         for i, osd in sorted(self.osds.items()):
             self._stop_quietly(f"osd.{i}", osd.shutdown)
+        if self.mgr is not None:
+            self._stop_quietly("mgr", self.mgr.shutdown)
         for mon in self.mons.values():
             self._stop_quietly(f"mon.{mon.name}", mon.shutdown)
         if self.data_dir is not None:

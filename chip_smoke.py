@@ -62,7 +62,7 @@ monitors and 12 OSDs (one per host, failure domain osd), sized after
 `rados bench`'s defaults (4 MiB objects, 16 concurrent ops) with pg_num
 64 (mon_target_pg_per_osd 100 x 12 OSDs over pool size 12, rounded down
 to a power of two): an RS(8,4) cauchy_good pool on plugin=torch takes
-64 writes and reads (every byte, and 8 objects' 12 shards against the
+32 writes and reads (every byte, and 8 objects' 12 shards against the
 numpy codec; every stripe through the write batcher, none inline); an
 OSD holding a data shard is killed and every object read whole and in
 a range inside the lost chunk (the read batcher's windowed decode);
@@ -70,6 +70,21 @@ that OSD returns empty and the time to clean is the repair latency; a
 CLAY(8,4,d=11) pool's 16 objects are rebuilt on another OSD by the
 planned repair (d = 11 helpers' repair planes, one K2 apply each); a flipped byte in one
 stored shard is found and repaired by a deep scrub.
+
+The mgr (phases 30-32): its PlacementModule and BalancerModule hosted on
+a stub mgr whose context is on cuda, over phase 22's map as the mgr
+decodes it: the scan's mappings must equal phase 22's, its remap
+forecast after phase 23's changes the diff of phase 22's and 23's
+mappings, and a dry-run balancer pass's proposals phase 24's
+calc_pg_upmaps, each with K3 launched and timed (wall, K3's device time,
+the card's idle share under torch.profiler); then a LocalCluster with
+the mgr on the card (one monitor, 12 OSDs, the default mgr_modules, an
+RS(8,4) pool of pg_num 64 and a size-3 pool of pg_num 128): librados
+writes through K1, the prometheus exporter's OSD, placement and
+device="cuda..." series, a placement scan on the mgr's own thread with
+K3, an active balancer pass whose upmaps commit in a new epoch, and
+`ceph -s` from the mgr's digest; last, qa/recovery_smoke.py on cuda with
+the failure detector at its default grace, which must exit 0.
 
 For each path the launch counters are set to 0 just before it and read
 just after, and every kernel of the path must have launched; K3's draws
@@ -106,6 +121,7 @@ import sys
 import threading
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -141,8 +157,9 @@ CPU_CHECK_XS = 1 << 16
 SCALAR_CHECK_XS = 512
 SCALAR_CHECK_PGS = 1024
 PROBE_ELEMENTS = 1 << 25
-#: the cluster phases, after `rados bench`'s defaults (-b 4M, -t 16)
-CLUSTER_OBJECTS = 64
+#: the cluster phases, after `rados bench`'s defaults (-b 4M, -t 16); 32
+#: objects, not 64, since the mgr's phases 30-32 (PERF.md lists the cut)
+CLUSTER_OBJECTS = 32
 CLUSTER_OBJECT_BYTES = 4 << 20
 CLUSTER_THREADS = 16
 CLUSTER_CLAY_OBJECTS = 16
@@ -1113,9 +1130,12 @@ def map_pool_stages(torch, m, pid: int) -> dict:
     return st
 
 
-def osdmap_slice(torch, dev, card: str, smi: str) -> list[dict]:
+def osdmap_slice(torch, dev, card: str, smi: str):
     """Phases 22-24: OSDMap.map_pool over two pools on the 1024-OSD map,
-    then osdmaptool (see the docstring)."""
+    then osdmaptool (see the docstring).  Returns the kernels' rows and
+    what phase 30 holds the mgr against: the map's maker, phase 22's and
+    23's mappings, phase 23's changes, and phase 24's mappings and
+    calc_pg_upmaps changes."""
     from ceph_tpu_torch.common.context import CephContext
     from ceph_tpu_torch.crush import ITEM_NONE, CrushWrapper, build_hierarchical_map
     from ceph_tpu_torch.osd import PG_POOL_ERASURE, OSDMap, calc_pg_upmaps
@@ -1269,8 +1289,8 @@ def osdmap_slice(torch, dev, card: str, smi: str) -> list[dict]:
     fresh = make()
     mappings = {pid: fresh.map_pool(pid) for pid in pools}
     t0 = time.perf_counter()
-    n_upmaps = len(calc_pg_upmaps(fresh, max_deviation=1, max_iterations=100,
-                                  mappings=mappings))
+    upmaps = calc_pg_upmaps(fresh, max_deviation=1, max_iterations=100, mappings=mappings)
+    n_upmaps = len(upmaps)
     upmap_s = time.perf_counter() - t0
     workdir = Path(__file__).resolve().parent / "build" / "chip_smoke"
     workdir.mkdir(parents=True, exist_ok=True)
@@ -1309,13 +1329,30 @@ def osdmap_slice(torch, dev, card: str, smi: str) -> list[dict]:
 
     # K3 at map_pool's launch shapes: the root and the host draw over each
     # pool's placement seeds (one pass of the interpreter takes the pool)
+    entries = map_pool_k3_rows(torch, dev, ck, sass, m, "24", "OSDMap.map_pool",
+                               {pid: f"{per_pool[pid]} K3 launches per map_pool"
+                                for pid in pools}, card, smi)
+    for e, pid in zip(entries, [p for p in pools for _ in range(2)]):
+        e["launches"] = launches[e["name"]]
+        e["launches_per_pass"] = per_pool[pid]
+    return entries, SimpleNamespace(
+        make=make, pools=pools, base=base, after=after, items=items, low_aff=low_aff,
+        out_osds=out_osds, mappings24=mappings, upmaps24=upmaps, sass=sass)
+
+
+def map_pool_k3_rows(torch, dev, ck, sass: dict, m, phase: str, route: str,
+                     notes: dict, card: str, smi: str) -> list[dict]:
+    """K3's rows at map_pool's launch shapes on map `m`: the root and the
+    host draw over each pool's placement seeds, each held against the
+    plain version and timed (``launches`` is left to the caller)."""
     entries = []
-    cm = crush.compiled(dev)
+    cm = m.crush.compiled(dev)
     map_bytes = cm.items.numel() * 12 + cm.sizes.numel() * 4
     magic = (cm.magic_m, cm.magic_ka)
-    for pid, (pg_num, size, rule, _) in pools.items():
+    for pid, pool in sorted(m.pools.items()):
+        pg_num, size, rule = pool.pg_num, pool.size, pool.crush_rule
         pps = torch.from_numpy(
-            m.pools[pid].raw_pg_to_pps_batch(np.arange(pg_num)).astype(np.int32)).to(dev)
+            pool.raw_pg_to_pps_batch(np.arange(pg_num)).astype(np.int32)).to(dev)
         zeros = torch.zeros_like(pps)
         root_args = (cm.items, cm.weights, cm.sizes, zeros, pps, zeros, zeros)
         hosts = (-1 - ck.straw2_choose(*root_args)).contiguous()
@@ -1326,17 +1363,13 @@ def osdmap_slice(torch, dev, card: str, smi: str) -> list[dict]:
             check(err == 0, f"straw2_choose at pool {pid}'s {level} draw differs")
             e, reduce_ms = k3_entry(
                 torch, ck, args, magic, sass, map_bytes, err,
-                f"OSDMap.map_pool, pool {pid} (pg_num {pg_num}, size {size}, rule {rule}): "
-                f"{pg_num} lanes at the {level}", card, smi,
-                launches_per_pass=per_pool[pid])
+                f"{route}, pool {pid} (pg_num {pg_num}, size {size}, rule {rule}): "
+                f"{pg_num} lanes at the {level}", card, smi)
             entries.append(e)
-            log(f"[24 K3] map_pool pool {pid}, {pg_num} lanes at the {level}, T "
+            log(f"[{phase} K3] {route} pool {pid}, {pg_num} lanes at the {level}, T "
                 f"{e['threads_per_lane']}: {e['ms']:.4f} ms (host {e['host_ms']:.4f} ms), "
                 f"bound {e['bound_ms']:.4f} ms (the reduction's overhead {reduce_ms:.4f} ms "
-                f"beyond it), plain {e['plain_ms']:.2f} ms, {per_pool[pid]} K3 launches per "
-                f"map_pool")
-    for e in entries:
-        e["launches"] = launches[e["name"]]
+                f"beyond it), plain {e['plain_ms']:.2f} ms, {notes[pid]}")
     return entries
 
 
@@ -1365,6 +1398,25 @@ def run_ops(n_ops: int, threads: int, op) -> tuple[list[float], float]:
 def rate(lat: list[float], wall: float, nbytes: int) -> str:
     return (f"wall {wall:.2f} s, per op {pcts(lat)}, "
             f"{nbytes / wall / 2**30:.3f} GiB/s")
+
+
+def wait_peered(c, pid: int, pg_num: int) -> float:
+    """Seconds until the primary of every PG of a new pool has peered
+    (ops before that are refused with EAGAIN and retried)."""
+    t0 = time.perf_counter()
+    placed = (None, [])
+    while True:
+        m_ = c._leader().osdmon.osdmap
+        if placed[0] is not m_:  # one map's primaries, computed once
+            placed = (m_, [m_.pg_to_up_acting_osds(pid, ps)[3] for ps in range(pg_num)])
+        waiting = 0
+        for ps, primary in enumerate(placed[1]):
+            pg = c.osds[primary].pgs.get(f"{pid}.{ps}")
+            waiting += pg is None or pg.activated_interval != pg.interval_start
+        if not waiting:
+            return time.perf_counter() - t0
+        check(time.perf_counter() - t0 < 600, f"{waiting} PGs of pool {pid} never peered")
+        time.sleep(0.5)
 
 
 def cluster_slice(torch, dev, card: str, smi: str) -> list[dict]:
@@ -1419,23 +1471,7 @@ def cluster_slice(torch, dev, card: str, smi: str) -> list[dict]:
                 if not o.startswith("_")}
 
     def wait_active(name: str) -> float:
-        """Seconds until the primary of every PG of a new pool has peered
-        (ops before that are refused with EAGAIN and retried)."""
-        t0 = time.perf_counter()
-        placed = (None, [])
-        while True:
-            m_ = c._leader().osdmon.osdmap
-            if placed[0] is not m_:  # one map's primaries, computed once
-                placed = (m_, [m_.pg_to_up_acting_osds(pids[name], ps)[3]
-                               for ps in range(pg_num)])
-            waiting = 0
-            for ps, primary in enumerate(placed[1]):
-                pg = c.osds[primary].pgs.get(f"{pids[name]}.{ps}")
-                waiting += pg is None or pg.activated_interval != pg.interval_start
-            if not waiting:
-                return time.perf_counter() - t0
-            check(time.perf_counter() - t0 < 600, f"{waiting} PGs of {name} never peered")
-            time.sleep(0.5)
+        return wait_peered(c, pids[name], pg_num)
 
     def wipe_and_revive(victim: int) -> float:
         """The victim comes back with an empty store (a replaced disk);
@@ -1450,10 +1486,10 @@ def cluster_slice(torch, dev, card: str, smi: str) -> list[dict]:
 
     # A killed OSD is noticed by the primaries alone: a sub-op to it
     # times out after 1.5 s.  The monitor's failure detector is held off
-    # (heartbeat grace 600 s), because an OSD that comes back is marked
-    # down again by the failure reports its peers sent while it was dead,
-    # and nothing re-boots it (the reference has the same race), so the
-    # repair of phases 27 and 28 would never start.  The repair planner
+    # (heartbeat grace 600 s) so that phase 26's degraded reads meet no
+    # down-marking mid-phase and these phases stay comparable with the
+    # runs before the OSD's re-boot on a wrong down-marking (phase 32
+    # runs a cluster at the default grace).  The repair planner
     # plans on every live helper: its cost-aware pruning (on by default)
     # drops helpers whose queues the clients deepened, and a CLAY plan on
     # fewer than d helpers falls back to reading k whole chunks.
@@ -1490,7 +1526,7 @@ def cluster_slice(torch, dev, card: str, smi: str) -> list[dict]:
         gf_kernels.reset_launch_counts()
         per_phase = {}
 
-        # 25. write 64 x 4 MiB from 16 client threads, then read them back
+        # 25. write 32 x 4 MiB from 16 client threads, then read them back
         l0, wb0 = launches(), stats("write_batcher")
         w_lat, w_wall = run_ops(n_obj, threads, lambda i: io.write_full(oid[i], objs[i]))
         back = [None] * n_obj
@@ -1721,11 +1757,407 @@ def cluster_slice(torch, dev, card: str, smi: str) -> list[dict]:
             "shape": shape,
             "launches_by_phase": {p: v[name] for p, v in per_phase.items()},
             "card": card, "nvidia_smi": smi,
+            **({"tc_floor_ms": tc_floor_ms(*mat.shape, cols)} if name == "gf_apply_k2" else {}),
         })
-        note = f"; {k1_note(*mat.shape, [cols], dev)}" if name == "gf_apply_k1" else ""
+        note = (f"; {k1_note(*mat.shape, [cols], dev)}" if name == "gf_apply_k1" else
+                f", int8 tensor-core floor {tc_floor_ms(*mat.shape, cols):.4f} ms")
         log(f"[29 {name}] {shape}: {ms:.4f} ms, bound {bound:.4f} ms by bytes{note}, "
             f"wrapper {wrapper_ms:.4f} ms, plain {plain_ms:.3f} ms")
     return entries
+
+
+# ---- phases 30-32: the mgr, its placement scan and balancer, on the card ----
+
+
+def profiled(torch, fn, ck) -> tuple[object, dict]:
+    """`fn()` once under torch.profiler: its result, and its wall seconds
+    (card synchronised), K3's device seconds, the card's idle share (one
+    less the device's busy time over the wall time) and K3's launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    k0 = ck.LAUNCHES["crush_straw2_k3"]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    busy = sum(getattr(e, "self_device_time_total", 0.0) for e in events) / 1e6
+    k3_s = sum(getattr(e, "self_device_time_total", 0.0) for e in events
+               if "straw2" in e.key) / 1e6
+    return out, {"wall": wall, "k3": k3_s, "idle": 1 - busy / wall,
+                 "launches": ck.LAUNCHES["crush_straw2_k3"] - k0}
+
+
+def stub_mgr(cct, m):
+    """What the placement and balancer modules reach of MgrDaemon, with
+    no cluster: the map and a mon-command channel (a dry-run balancer
+    sends nothing), the daemons' stats (none) and the report sink."""
+    exported = []
+    mgr = SimpleNamespace(
+        cct=cct, mc=SimpleNamespace(osdmap=m, command=lambda cmd: (-1, "no monitor")),
+        _modules={}, latest_stats=lambda: {}, pg_degraded_by_pgid=lambda: {},
+        exported=exported,
+        ingest_local_report=lambda d, c, schema=None: exported.append(d))
+    return mgr
+
+
+def mgr_placement_slice(torch, dev, card: str, smi: str, om) -> list[dict]:
+    """Phase 30: the mgr's PlacementModule and BalancerModule on phase
+    22's map, decoded as the mgr's MonClient decodes a map (on its
+    context's device, cuda), with no cluster."""
+    from ceph_tpu_torch.common.context import CephContext
+    from ceph_tpu_torch.mgr.balancer_module import BalancerModule
+    from ceph_tpu_torch.mgr.placement_module import PlacementModule
+    from ceph_tpu_torch.osd import OSDMap
+    from ceph_tpu_torch.osd.placement import diff_mappings
+    from ceph_tpu_torch.ops import crush_kernels as ck
+
+    cct = CephContext("mgr.x", overrides={"mgr_balancer_active": False}, device="cuda")
+    try:
+        m0 = OSDMap.from_json(om.make().to_json(), device=cct.device)
+        mgr = stub_mgr(cct, m0)
+        pm, bal = PlacementModule(mgr), BalancerModule(mgr)
+        mgr._modules.update(placement=pm, balancer=bal)
+
+        # ---- the mgr's placement path: counts set to 0 here, read after the pass ----
+        ck.reset_launch_counts()
+        built0 = ck.MAGIC_BUILDS
+        # 30a. the scan: one map_pool a pool, scored; then the same scan
+        # under torch.profiler
+        t0 = time.perf_counter()
+        report = pm.scan()
+        torch.cuda.synchronize()
+        scan_s = time.perf_counter() - t0
+        scan_launches = ck.LAUNCHES["crush_straw2_k3"]
+        check(m0.device.type == "cuda", f"the mgr's map is on {m0.device}")
+        for pid, (up, prim) in om.base.items():
+            sup, sprim = pm._mappings[pid]
+            check(np.array_equal(sup, up) and np.array_equal(sprim, prim),
+                  f"phase 30: the scan's pool {pid} differs from phase 22's mappings")
+        _, prof_scan = profiled(torch, pm.scan, ck)
+        # 30b. phase 23's changes in the next epoch: the forecast equals
+        # the diff of phase 22's and phase 23's mappings
+        m1 = OSDMap.from_json(m0.to_json(), device=cct.device)
+        m1.pg_upmap_items.update(om.items)
+        for o in om.low_aff:
+            m1.set_primary_affinity(o, 0.0)
+        for o in om.out_osds:
+            m1.mark_out(o)
+        mgr.mc.osdmap = m1
+        k0 = ck.LAUNCHES["crush_straw2_k3"]
+        t0 = time.perf_counter()
+        pm.scan()
+        torch.cuda.synchronize()
+        diff_s = time.perf_counter() - t0
+        diff_launches = ck.LAUNCHES["crush_straw2_k3"] - k0
+        for pid, (up, prim) in om.after.items():
+            sup, sprim = pm._mappings[pid]
+            check(np.array_equal(sup, up) and np.array_equal(sprim, prim),
+                  f"phase 30: the scan's pool {pid} after the changes differs from phase 23's")
+        want = diff_mappings(m1, {pid: up for pid, (up, _p) in om.base.items()},
+                             {pid: up for pid, (up, _p) in om.after.items()},
+                             shard_bytes=pm._shard_bytes(m1))
+        got = {k: v for k, v in pm._last_diff.items() if k not in ("from_epoch", "to_epoch")}
+        check(got == want, f"phase 30: the remap forecast {got} differs from {want}")
+        check(got["pgs_remapped"] > 0, "phase 30: the forecast moved no PG")
+        log(f"[30 placement scan] {len(om.pools)} pools, {sum(om.base[p][0].shape[0] for p in om.pools)} "
+            f"PGs on {m0.max_osd} OSDs, mappings equal to phase 22's: {scan_s * 1e3:.1f} ms "
+            f"wall, {scan_launches} K3 launches; under torch.profiler {prof_scan['wall'] * 1e3:.1f} ms "
+            f"wall, K3 {prof_scan['k3'] * 1e3:.3f} ms on the card, idle share "
+            f"{prof_scan['idle']:.4f}; score {report['score']:.4f}, max deviation "
+            f"{report['max_deviation']:.2f}; card {card}, {smi}")
+        log(f"[30 remap forecast] phase 23's changes (epoch {m0.epoch} -> {m1.epoch}): "
+            f"{got['pgs_remapped']} PGs, {got['shards_remapped']} shards remapped, misplaced "
+            f"fraction {got['misplaced_fraction']:.6f}, equal to diff_mappings of phase 22's "
+            f"and 23's mappings; {diff_s * 1e3:.1f} ms wall, {diff_launches} K3 launches")
+
+        # 30c. one dry-run balancer pass on the live map (phase 22's state):
+        # its proposals equal calc_pg_upmaps on phase 24's mappings
+        mgr.mc.osdmap = m0
+        k0 = ck.LAUNCHES["crush_straw2_k3"]
+        t0 = time.perf_counter()
+        changes = bal.optimize_once()
+        torch.cuda.synchronize()
+        pass_s = time.perf_counter() - t0
+        pass_launches = ck.LAUNCHES["crush_straw2_k3"] - k0
+        check([tuple(int(v) for v in c) for c in changes]
+              == [tuple(int(v) for v in c) for c in om.upmaps24],
+              f"phase 30: the balancer proposed {len(changes)} changes, calc_pg_upmaps on "
+              f"phase 24's mappings {len(om.upmaps24)}, or others")
+        check(not m0.pg_upmap_items, "phase 30: a dry-run pass changed the live map")
+        _, prof_pass = profiled(torch, bal.optimize_once, ck)
+        lp = bal.status()["last_pass"]
+        torch.cuda.synchronize()
+        total = ck.LAUNCHES["crush_straw2_k3"]
+        check(scan_launches > 0, "phase 30: the placement scan did not launch K3")
+        check(pass_launches > 0, "phase 30: the balancer pass did not launch K3")
+        check(ck.MAGIC_BUILDS == built0, "phase 30: K3's magic was built in the wrapper")
+        log(f"[30 balancer pass] dry run: {len(changes)} changes equal to calc_pg_upmaps on "
+            f"phase 24's mappings, score {lp['score_before']['score']} -> "
+            f"{lp['score_after']['score']}: {pass_s * 1e3:.1f} ms wall, {pass_launches} K3 "
+            f"launches; under torch.profiler {prof_pass['wall'] * 1e3:.1f} ms wall, K3 "
+            f"{prof_pass['k3'] * 1e3:.3f} ms on the card, idle share {prof_pass['idle']:.4f}; "
+            f"card {card}, {smi}")
+        log(f"[mgr placement path] crush_straw2_k3 launches {total}: scan {scan_launches}, "
+            f"next-epoch scan {diff_launches}, pass {pass_launches}, profiled runs "
+            f"{prof_scan['launches']} + {prof_pass['launches']}")
+        entries = map_pool_k3_rows(
+            torch, dev, ck, om.sass, m0, "30", "mgr placement scan and balancer pass",
+            {pid: f"{scan_launches} K3 launches a scan, {pass_launches} a pass"
+             for pid in m0.pools}, card, smi)
+        for e in entries:
+            e["launches"] = total
+            e["launches_per_scan"] = scan_launches
+            e["launches_per_pass"] = pass_launches
+        return entries
+    finally:
+        cct.shutdown()
+
+
+def mgr_cluster_slice(torch, dev, card: str, smi: str, sass: dict) -> list[dict]:
+    """Phase 31: a port LocalCluster with the mgr on the card (one mon,
+    12 OSDs, the default mgr_modules), an RS(8,4) pool of pg_num 64 and a
+    size-3 pool of pg_num 128 (96 PG shards an OSD, about Ceph's
+    mon_target_pg_per_osd of 100): librados writes through K1, the
+    exporter's series, the placement scan on the mgr's own thread through
+    K3, one active balancer pass whose upmaps commit, and `ceph -s`.
+
+    The mgr's scan and pass share the interpreter lock with the 12 OSDs:
+    each of a scan's ~1300 draws (a 12-wide pool on exactly 12 OSDs
+    retries) gives it up at its syncs and its launch.  While every
+    OSD's recovery pass queried every peer of every PG each second, a
+    scan took 102-163 s and a pass 389-409 s on the H100; the passes now
+    skip PGs found clean (osd/recovery.py, CLEAN_REPOLL_S)."""
+    import urllib.request
+
+    from ceph_tpu_torch.ops import crush_kernels as ck
+    from ceph_tpu_torch.ops import gf_kernels
+    from ceph_tpu_torch.ops.gf_kernels import apply_matrix_plain, gf_apply
+    from ceph_tpu_torch.ops.bitplane import TABLES
+    from ceph_tpu_torch.osd.osdmap import object_ps
+    from ceph_tpu_torch.qa import LocalCluster
+
+    k, m, n_osds, pools = 8, 4, 12, (("rs84", 64), ("rep3", 128))
+    n_obj, obj_bytes = CLUSTER_CLAY_OBJECTS, CLUSTER_OBJECT_BYTES
+    rng = np.random.default_rng(SEED + 31)
+    objs = [rng.integers(0, 256, obj_bytes, dtype=np.uint8).tobytes() for _ in range(n_obj)]
+
+    def k3() -> int:
+        torch.cuda.synchronize()
+        return ck.LAUNCHES["crush_straw2_k3"]
+
+    # balancer passes on demand (the pass below), not on its 10 s timer
+    c = LocalCluster(n_mons=1, n_osds=n_osds, with_mgr=True,
+                     conf_overrides={"mgr_balancer_interval": 3600.0})  # device: cuda
+    t0 = time.perf_counter()
+    c.start()
+    start_s = time.perf_counter() - t0
+    try:
+        mgr = c.mgr
+        check(mgr.device.type == "cuda" and mgr.cct.device.type == "cuda",
+              f"the mgr runs on {mgr.device}")
+        pm, bal = mgr.module("placement"), mgr.module("balancer")
+        scans = []
+        real_scan = pm.scan
+
+        def scan():  # the serve loop's scans: thread, K3 launches, seconds
+            k0, t0 = k3(), time.perf_counter()
+            out = real_scan()
+            scans.append((threading.current_thread().name, k3() - k0,
+                          time.perf_counter() - t0))
+            return out
+        pm.scan = scan
+
+        # ---- the mgr cluster path: counts set to 0 here, read after the pass ----
+        ck.reset_launch_counts()
+        gf_kernels.reset_launch_counts()
+        c.create_ec_pool("rs84", k=k, m=m, pg_num=pools[0][1], plugin="torch",
+                         extra_profile={"technique": "cauchy_good"})
+        c.create_replicated_pool("rep3", size=3, pg_num=pools[1][1])
+        client = c.client()
+        io = client.open_ioctx("rs84")
+        peer_s = {name: wait_peered(c, client.pool_id(name), n) for name, n in pools}
+
+        # the placement scan on the mgr's thread: the pools' epochs woke it
+        t0 = time.perf_counter()
+        while not any(t.startswith("mgr-placement") and n > 0 for t, n, _s in scans):
+            check(time.perf_counter() - t0 < 300,
+                  f"phase 31: no scan with K3 on the mgr's thread: {scans}, "
+                  f"failed modules {mgr.failed_modules}")
+            time.sleep(0.2)
+        rep = pm._report
+        log(f"[31 placement scan] pools peered in {peer_s} s; {len(scans)} scans so far "
+            f"on {sorted({t for t, _n, _s in scans})}: K3 launches "
+            f"{[n for _t, n, _s in scans]}, seconds {[round(x, 2) for _t, _n, x in scans]}; "
+            f"epoch {rep['epoch']} score {rep['score']:.4f}, max deviation "
+            f"{rep['max_deviation']:.2f}")
+
+        # objects in PGs whose 12 slots CRUSH filled: a slot left empty on
+        # exactly 12 OSDs counts its objects degraded, and the balancer
+        # refuses to run while any object is degraded
+        pid = client.pool_id("rs84")
+        mm = c._leader().osdmon.osdmap
+        full = {ps for ps in range(pools[0][1])
+                if min(mm.pg_to_up_acting_osds(pid, ps)[2]) >= 0}
+        oid = [o for o in (f"mgr_{j}" for j in range(64 * n_obj))
+               if object_ps(o, pools[0][1]) in full][:n_obj]
+        l0 = dict(gf_kernels.LAUNCHES)
+        w_lat, w_wall = run_ops(n_obj, n_obj, lambda i: io.write_full(oid[i], objs[i]))
+        for i in range(n_obj):
+            check(io.read(oid[i]) == objs[i], f"phase 31: {oid[i]} reads back wrong")
+        torch.cuda.synchronize()
+        k1_writes = gf_kernels.LAUNCHES["gf_apply_k1"] - l0["gf_apply_k1"]
+        check(k1_writes > 0, "phase 31: the writes did not launch K1")
+        for name, _n in pools:  # every shard written, so no object degraded
+            c.wait_clean(name, timeout=300)
+        log(f"[31 mgr cluster] 1 mon, {n_osds} OSDs and the mgr ({sorted(mgr._modules)}) up "
+            f"in {start_s:.1f} s; {n_obj} x {obj_bytes >> 20} MiB written through librados "
+            f"({rate(w_lat, w_wall, n_obj * obj_bytes)}), read back equal, {k1_writes} K1 "
+            f"launches")
+
+        # the exporter: OSD counters, the placement series, the card's probe rows
+        url = mgr.module("prometheus").url
+        body = ""
+
+        def scraped() -> bool:
+            nonlocal body
+            body = urllib.request.urlopen(url, timeout=10).read().decode()
+            return ("ceph_osd_op{" in body and "ceph_placement_osd_shards{" in body
+                    and re.search(r'ceph_backend_device_ok\{[^}]*device="cuda', body) is not None)
+        t0 = time.perf_counter()
+        while not scraped():
+            check(time.perf_counter() - t0 < 120, "phase 31: the exporter lacks a series: "
+                  + ", ".join(s for s in ("ceph_osd_op{", "ceph_placement_osd_shards{",
+                                          'device="cuda') if s not in body))
+            time.sleep(0.5)
+        series = sorted({ln.split("{")[0].split(" ")[0] for ln in body.splitlines()
+                         if ln.startswith(("ceph_osd_", "ceph_placement_", "ceph_backend_device_"))})
+        log(f"[31 prometheus] {len(body.splitlines())} lines, {len(series)} ceph_osd_*, "
+            f"ceph_placement_* and ceph_backend_device_* series, "
+            f"{[ln for ln in body.splitlines() if ln.startswith('ceph_backend_device_ok')]}")
+
+        # one active balancer pass: its upmaps commit and a new epoch carries them
+        epoch0 = mgr.mc.osdmap.epoch
+        k0 = k3()
+        t0 = time.perf_counter()
+        changes = bal.optimize_once()
+        pass_s = time.perf_counter() - t0
+        pass_launches = k3() - k0
+        st = bal.status()
+        check(st["passes"] == 1 and not st["passes_skipped"],
+              f"phase 31: the pass did not run: {st.get('last_skip')}")
+        check(changes and st["moves_committed"] == len(changes),
+              f"phase 31: {len(changes)} changes, {st['moves_committed']} committed, "
+              f"{st['last_error']}")
+        t0 = time.perf_counter()
+        while not (mgr.mc.osdmap.epoch > epoch0 and mgr.mc.osdmap.pg_upmap_items):
+            check(time.perf_counter() - t0 < 30, "phase 31: no map carries the upmaps")
+            time.sleep(0.2)
+        check(pass_launches > 0, "phase 31: the balancer pass did not launch K3")
+        log(f"[31 balancer pass] {len(changes)} moves committed in {pass_s * 1e3:.1f} ms "
+            f"({pass_launches} K3 launches), score {st['last_pass']['score_before']['score']} "
+            f"-> {st['last_pass']['score_after']['score']}; epoch {epoch0} -> "
+            f"{mgr.mc.osdmap.epoch} carries {len(mgr.mc.osdmap.pg_upmap_items)} pg_upmap_items")
+
+        # `ceph -s` answers from the mgr's digest
+        t0 = time.perf_counter()
+        while True:
+            rv, status = c.mon_command({"prefix": "status"})
+            if rv == 0 and (status.get("usage") or {}).get("total_bytes") and \
+                    status.get("pgs_by_state"):
+                break
+            check(time.perf_counter() - t0 < 30, f"phase 31: `ceph -s` lacks the digest: {rv}")
+            time.sleep(0.5)
+        log(f"[31 ceph -s] usage {status['usage']}, pgs {status['pgs_by_state']}, health "
+            f"{(status.get('health') or {}).get('status')}")
+        check(mgr.failed_modules == {}, f"phase 31: mgr modules died: {mgr.failed_modules}")
+        launches = {"crush_straw2_k3": k3(), **dict(gf_kernels.LAUNCHES)}
+        log(f"[mgr cluster path] launches {launches}")
+        check(launches["gf_apply_k1"] > 0 and launches["crush_straw2_k3"] > 0,
+              "phase 31: a kernel of the path was not launched")
+        final = mgr.mc.osdmap
+    finally:
+        c.stop()
+
+    # K1 at the write's launch shape and K3 at the scan's, on the mgr's map
+    entries = map_pool_k3_rows(
+        torch, dev, ck, sass, final, "31",
+        "mgr placement scan in the cluster", dict.fromkeys(final.pools, "on the mgr's thread"),
+        card, smi)
+    for e in entries:
+        e["launches"] = launches["crush_straw2_k3"]
+    from ceph_tpu_torch.ec.registry import ErasureCodePluginRegistry
+    rs = ErasureCodePluginRegistry.instance().factory(
+        {"plugin": "torch", "technique": "cauchy_good", "k": str(k), "m": str(m)})
+    L = rs.get_chunk_size(obj_bytes)
+    x = rand_bytes(torch, (k, L), SEED + 31, dev)
+    tables = TABLES.get(rs.coding, dev)
+    err = max_err(torch, gf_apply(rs.coding, [x], tables=tables), apply_matrix_plain(rs.coding, x))
+    check(err == 0, "phase 31: K1 disagrees with the plain version")
+    ms, host_ms = time_ms(torch, gf_kernels.prepare(rs.coding, [x], tables), iters=20)
+    plain_ms, _ = time_ms(torch, lambda: apply_matrix_plain(rs.coding, x), iters=3, warmup=1)
+    entries.append({
+        "name": "gf_apply_k1", "route": "cuda", "source": "ceph_tpu_torch/csrc/gf_apply.cu",
+        "replaces": "ceph_tpu/ops/pallas_gf.py:184", "launches": launches["gf_apply_k1"],
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms(m, k, L),
+        "bound_by": "bytes", "library_ms": None, "host_ms": host_ms,
+        "shape": f"mgr cluster write (phase 31): one 4 MiB object's RS(8,4) stripe [8, {L}]",
+        "card": card, "nvidia_smi": smi})
+    log(f"[31 gf_apply_k1] [8, {L}]: {ms:.4f} ms, bound {bound_ms(m, k, L):.4f} ms by bytes, "
+        f"plain {plain_ms:.3f} ms")
+    return entries
+
+
+def recovery_smoke_slice(torch, dev, card: str, smi: str) -> list[dict]:
+    """Phase 32: the port's recovery smoke (qa/recovery_smoke.py) on the
+    card, the monitor's failure detector at its default grace: k + m = 3
+    OSDs with the mgr hosted, two writers, a kill, a revive and drain, the
+    prometheus series and a tail-promoted trace."""
+    import contextlib
+
+    from ceph_tpu_torch.ops import gf_kernels
+    from ceph_tpu_torch.ops.bitplane import TABLES
+    from ceph_tpu_torch.ops.gf_kernels import apply_matrix_plain, gf_apply
+    from ceph_tpu_torch.qa import recovery_smoke
+
+    gf_kernels.reset_launch_counts()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = recovery_smoke.main(["--device", "cuda"])
+    smoke_s = time.perf_counter() - t0
+    summary = json.loads(buf.getvalue())
+    torch.cuda.synchronize()
+    launches = dict(gf_kernels.LAUNCHES)
+    log(f"[32 recovery smoke] exit {rc} in {smoke_s:.1f} s, K1 launches "
+        f"{launches['gf_apply_k1']}: {json.dumps(summary)}")
+    check(rc == 0, f"phase 32: the recovery smoke failed: {summary['problems']}")
+    check(launches["gf_apply_k1"] > 0, "phase 32: the recovery smoke did not launch K1")
+
+    # K1 at the smoke's write: one 4 KiB object's RS(2,1) stripe
+    from ceph_tpu_torch.ec.registry import ErasureCodePluginRegistry
+    rs = ErasureCodePluginRegistry.instance().factory(
+        {"plugin": "torch", "k": str(recovery_smoke.K), "m": str(recovery_smoke.M)})
+    L = rs.get_chunk_size(recovery_smoke.WSIZE)
+    x = rand_bytes(torch, (recovery_smoke.K, L), SEED + 32, dev)
+    tables = TABLES.get(rs.coding, dev)
+    err = max_err(torch, gf_apply(rs.coding, [x], tables=tables), apply_matrix_plain(rs.coding, x))
+    check(err == 0, "phase 32: K1 disagrees with the plain version")
+    ms, host_ms = time_ms(torch, gf_kernels.prepare(rs.coding, [x], tables), iters=20)
+    plain_ms, _ = time_ms(torch, lambda: apply_matrix_plain(rs.coding, x), iters=3, warmup=1)
+    rows, n = rs.coding.shape
+    log(f"[32 gf_apply_k1] [{rows}, {n}] x {L}: {ms:.4f} ms, bound "
+        f"{bound_ms(rows, n, L):.6f} ms by bytes, plain {plain_ms:.3f} ms")
+    return [{
+        "name": "gf_apply_k1", "route": "cuda", "source": "ceph_tpu_torch/csrc/gf_apply.cu",
+        "replaces": "ceph_tpu/ops/pallas_gf.py:184", "launches": launches["gf_apply_k1"],
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms(rows, n, L),
+        "bound_by": "bytes", "library_ms": None, "host_ms": host_ms,
+        "shape": f"recovery smoke write (phase 32): one 4 KiB object's RS(2,1) stripe "
+                 f"[{n}, {L}]",
+        "card": card, "nvidia_smi": smi}]
 
 
 def main() -> int:
@@ -1956,8 +2388,12 @@ def main() -> int:
             + f", wrapper {wrapper_ms:.4f} ms, plain {plain_ms:.3f} ms")
     kernels += crush_slice(torch, dev, card, smi)
     kernels += osd_slice(torch, dev, card, smi, rs84, stripes, objects, si)
-    kernels += osdmap_slice(torch, dev, card, smi)
+    entries, om = osdmap_slice(torch, dev, card, smi)
+    kernels += entries
     kernels += cluster_slice(torch, dev, card, smi)
+    kernels += mgr_placement_slice(torch, dev, card, smi, om)
+    kernels += mgr_cluster_slice(torch, dev, card, smi, om.sass)
+    kernels += recovery_smoke_slice(torch, dev, card, smi)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

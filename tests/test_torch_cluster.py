@@ -531,8 +531,9 @@ def test_profile_defaults_to_torch_on_the_cluster_device(runs):
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        LocalCluster(with_mgr=True, device="cpu")
+    # the mgr is ported: the option constructs a cluster that hosts one
+    c = LocalCluster(with_mgr=True, device="cpu")
+    assert c.with_mgr and c.mgr is None and str(c.device) == "cpu"
     with pytest.raises(NotImplementedError, match="queue 1 item 8"):
         LocalCluster(with_mds=True, device="cpu")
     osd = OSD.__new__(OSD)
@@ -617,3 +618,86 @@ def test_osds_share_placements_by_map_content():
         for ps in range(16):
             up, up_p, acting, acting_p = mm.pg_to_up_acting_osds(1, ps)
             assert daemon._placed(memo, 1, ps) == (tuple(up), up_p, tuple(acting), acting_p)
+
+
+def test_revived_osd_stays_up_under_the_failure_detector():
+    """An OSD killed for two heartbeat intervals and then revived meets
+    its peers' late failure reports: their silent-ping counts carry over
+    to its new address, so two of them report it right after its boot
+    and the monitor marks it down again.  With the failure detector at
+    its default grace, the OSD sees itself down in a map, boots again
+    (upstream's "wrongly marked me down"), is up in the newest map 20 s
+    after its boot and stays up, and its PGs come clean with it in their
+    acting sets.  One reporter marks an OSD down here: a peer retracts
+    its report at the ping reply that follows it, so with two the fault
+    showed only when two late reports met within that window."""
+    c = LocalCluster(n_mons=1, n_osds=6, device="cpu",
+                     conf_overrides={"mon_osd_min_down_reporters": 1}).start()
+    try:
+        c.create_ec_pool("reboot", k=2, m=1, pg_num=16)
+        io = c.client().open_ioctx("reboot")
+        data = {f"o{i}": bytes([i + 1]) * 8192 for i in range(8)}
+        for oid, d in data.items():
+            io.write_full(oid, d)
+        victim = 2
+        c.kill_osd(victim)
+        # two silent pings at the default 2 s interval; the third, which
+        # the revived OSD answers, is counted before its reply comes
+        time.sleep(4.5)
+        c.revive_osd(victim)
+        booted = time.monotonic()
+        leader_map = lambda: c._leader().osdmon.osdmap  # noqa: E731
+        time.sleep(max(0.0, booted + 20.0 - time.monotonic()))
+        m = leader_map()
+        assert m.is_up(victim), f"osd.{victim} down at epoch {m.epoch}"
+        c.wait_clean("reboot", timeout=60)
+        m = leader_map()
+        assert m.is_up(victim), f"osd.{victim} down at epoch {m.epoch}"
+        pid = next(i for i, p in m.pools.items() if p.name == "reboot")
+        holds = [ps for ps in range(16)
+                 if victim in m.pg_to_up_acting_osds(pid, ps)[2]]
+        assert holds, f"osd.{victim} is in no acting set"
+        assert c._all_clean("reboot")
+        for oid, d in data.items():
+            assert io.read(oid) == d
+    finally:
+        c.stop()
+
+
+def test_idle_recovery_passes_skip_clean_pgs(monkeypatch):
+    """A primary's recovery pass queries the peers of a PG it found
+    clean again only when its version, interval, acting set or those
+    members' addresses change (or every CLEAN_REPOLL_S): every pass used
+    to query every peer of every PG each second, which in a 12-OSD
+    cluster held the interpreter lock so busy that the mgr's placement
+    scan took minutes.  A write re-queries its PG, and a revived OSD (a
+    new address) still gets the objects it missed."""
+    from ceph_tpu_torch.osd import recovery
+
+    c = LocalCluster(n_mons=1, n_osds=3, device="cpu",
+                     conf_overrides={"osd_heartbeat_grace": 600.0}).start()
+    try:
+        c.create_replicated_pool("idle", size=3, pg_num=8)
+        client = c.client()
+        io = client.open_ioctx("idle")
+        io.write_full("a", b"x" * 4096)
+        c.wait_clean("idle", timeout=60)
+        time.sleep(2.5)  # the passes after the write mark every PG clean
+        queried = []
+        real = recovery.MPGQuery
+        monkeypatch.setattr(recovery, "MPGQuery",
+                            lambda **kw: queried.append(kw["pgid"]) or real(**kw))
+        time.sleep(3.5)  # three idle passes on every OSD
+        assert queried == [], queried
+        pgid = f"{client.pool_id('idle')}.{object_ps('b', 8)}"
+        io.write_full("b", b"y" * 4096)
+        assert _wait(lambda: pgid in queried, 5.0), queried
+        c.kill_osd(2)
+        io.write_full("c", b"z" * 4096)
+        c.revive_osd(2)
+        c.wait_clean("idle", timeout=60)
+        assert io.read("c") == b"z" * 4096
+        assert any(o == "c" for cid in c.osds[2].store.list_collections()
+                   for o in c.osds[2].store.list_objects(cid))
+    finally:
+        c.stop()

@@ -114,14 +114,17 @@ def test_kernel_annotation_and_device_trace_on_the_cpu(tmp_path):
 
 def test_sentinel_probe_without_a_card(monkeypatch):
     """The probe names the CUDA runtime's state; the per-device rows have
-    one row per CUDA device (none here); the forced state synthesizes."""
+    one row per CUDA device, or one ``cpu:0`` row without a card (the
+    device the daemons run on then); the forced state synthesizes."""
     import torch
 
     want = "cuda" if torch.cuda.is_available() else "cpu"
     monkeypatch.delenv("CEPH_TPU_SENTINEL_STATE", raising=False)
     assert kernel_telemetry.default_probe() == want
     rows = kernel_telemetry.probe_device_rows()
-    assert len(rows) == torch.cuda.device_count()
+    n = torch.cuda.device_count()
+    assert [r["device"] for r in rows] == (
+        [f"cuda:{i}" for i in range(n)] if n else ["cpu:0"])
     assert all(r["ok"] for r in rows)
     monkeypatch.setenv("CEPH_TPU_SENTINEL_STATE", "degraded:test wedge")
     with pytest.raises(RuntimeError, match="test wedge"):
