@@ -7,7 +7,8 @@ each op's target primary locally (no metadata server — the CRUSH property),
 and resends ops when:
 - the reply is -ESTALE-like (-116: wrong primary; the map moved),
 - the target connection dies,
-- a new map arrives while ops are in flight and their target changed.
+- a new map arrives while ops are in flight and their target changed
+  (``_scan_requests``).
 """
 from __future__ import annotations
 
@@ -28,6 +29,11 @@ from ..osd.messages import (
     pack_data,
     unpack_data,
 )
+
+
+#: stands in a waiter's reply slot when a new map moved its op's target:
+#: the op is resent on the new map (reference: Objecter::_scan_requests)
+_RETARGET = object()
 
 
 class Objecter(Dispatcher):
@@ -54,6 +60,9 @@ class Objecter(Dispatcher):
         self._linger_lock = make_lock("objecter::linger")
         self._replies: dict[int, MOSDOpReply] = {}
         self._outstanding: set[int] = set()
+        # tid -> (pool, oid, op, primary) of each op in flight, for the
+        # resend scan on a map push
+        self._targets: dict[int, tuple] = {}
         # admission throttles (reference: Objecter's op budget —
         # objecter_inflight_ops / objecter_inflight_op_bytes).  These
         # are the backpressure sink of the whole write path: an op
@@ -65,9 +74,13 @@ class Objecter(Dispatcher):
         self.mc.subscribe_osdmap(callback=self._on_new_map)
 
     def _on_new_map(self, m) -> None:
-        """Map-push hook: a new map may mean a new primary that has
-        never heard of our watches — re-register them off-thread (linger
-        resend; runs even for an idle watcher that submits no ops)."""
+        """Map-push hook: resend every op in flight whose primary the new
+        map moved (an op sent to an OSD that went down would otherwise
+        wait out its whole timeout); and a new map may mean a new primary
+        that has never heard of our watches — re-register them off-thread
+        (linger resend; runs even for an idle watcher that submits no
+        ops)."""
+        self._scan_requests(m)
         if not self._watches:
             return
         with self._linger_lock:
@@ -103,6 +116,22 @@ class Objecter(Dispatcher):
 
     def shutdown(self) -> None:
         self.messenger.shutdown()
+
+    def _scan_requests(self, m) -> None:
+        """Wake the waiter of every op in flight whose target `m` moves
+        (reference: Objecter::_scan_requests); it resends on the new map
+        under the same reqid, so a primary that applied the op before it
+        went away cannot make it apply twice."""
+        if m is None:
+            return
+        with self._lock:
+            moved = [tid for tid, (pool, oid, op, target) in self._targets.items()
+                     if tid not in self._replies
+                     and self._target_in(m, pool, oid, op) != target]
+            for tid in moved:
+                self._replies[tid] = _RETARGET
+            if moved:
+                self._cond.notify_all()
 
     # -- dispatch ----------------------------------------------------------
     def ms_dispatch(self, conn, msg) -> bool:
@@ -222,6 +251,25 @@ class Objecter(Dispatcher):
         reachable = sum(1 for o in acting if o >= 0 and m.is_up(o))
         return reachable < pool.min_size
 
+    @staticmethod
+    def _pg_of(pool, oid: str, op: str) -> int:
+        if op in ("list", "scrub", "scrub-noprepair") and oid.startswith(":pg:"):
+            # pg-targeted pseudo-oid — honored by the OSD only for these
+            # ops; anything else treats ':pg:*' as a normal name
+            return int(oid[4:])
+        return object_ps(oid, pool.pg_num)
+
+    @classmethod
+    def _target_in(cls, m, pool_id: int, oid: str, op: str) -> tuple:
+        """(primary, its address) of the op in map `m`; (-1, None) when
+        it has none there."""
+        pool = m.pools.get(pool_id)
+        if pool is None:
+            return -1, None
+        primary = m.pg_to_up_acting_osds(pool_id, cls._pg_of(pool, oid, op))[3]
+        addr = m.osd_addrs.get(primary)
+        return primary, tuple(addr) if addr is not None else None
+
     def _calc_target(
         self, pool_id: int, oid: str, op: str = ""
     ) -> tuple[int, tuple]:
@@ -233,12 +281,7 @@ class Objecter(Dispatcher):
         pool = m.pools.get(pool_id)
         if pool is None:
             raise KeyError(f"no pool {pool_id}")
-        if op in ("list", "scrub", "scrub-noprepair") and oid.startswith(":pg:"):
-            # pg-targeted pseudo-oid — honored by the OSD only for these
-            # ops; anything else treats ':pg:*' as a normal name
-            ps = int(oid[4:])
-        else:
-            ps = object_ps(oid, pool.pg_num)
+        ps = self._pg_of(pool, oid, op)
         _up, _upp, _acting, primary = m.pg_to_up_acting_osds(pool_id, ps)
         addr = m.osd_addrs.get(primary)
         if primary < 0 or addr is None:
@@ -414,6 +457,12 @@ class Objecter(Dispatcher):
                 self._tid += 1
                 tid = self._tid
                 self._outstanding.add(tid)
+                self._targets[tid] = (target_pool, oid, op, (_osd, addr))
+            # a map pushed between _calc_target and the registration
+            # above was scanned without this op: scan the newest now
+            m_now = self.mc.osdmap
+            if m_now is not m:
+                self._scan_requests(m_now)
             try:
                 conn = self.messenger.connect(addr)
                 # bytes payloads ride base64; structured payloads (xattr
@@ -440,6 +489,7 @@ class Objecter(Dispatcher):
                 hard += 1
                 with self._lock:
                     self._outstanding.discard(tid)
+                    self._targets.pop(tid, None)
                 self._refresh_map(m)
                 continue
             with self._lock:
@@ -448,6 +498,15 @@ class Objecter(Dispatcher):
                 )
                 rep = self._replies.pop(tid, None) if ok else None
                 self._outstanding.discard(tid)
+                self._targets.pop(tid, None)
+            if rep is _RETARGET:
+                # a newer map moved the primary: resend there at once
+                # (time-bounded by the same patience as -EAGAIN; a map
+                # change is what every attempt below waits for anyway)
+                last = "target moved by a new map"
+                if _time.monotonic() >= eagain_deadline:
+                    break
+                continue
             if rep is None:
                 last = "op timed out"
                 hard += 1

@@ -60,6 +60,7 @@ class PlacementModule(MgrModule):
         self._report: dict | None = None     # last cluster_report
         self._map = None                     # the map _report was scanned on
         self._last_diff: dict | None = None  # last epoch diff (JSON-safe)
+        self._last_shard_bytes: dict[int, float] = {}
         self._diff_ts: float | None = None
         self._last_scan_ts: float = 0.0
         self._stats = {
@@ -99,11 +100,12 @@ class PlacementModule(MgrModule):
             prev_maps = self._mappings
         diff = None
         if prev_maps is not None and m.epoch != prev_epoch:
+            shard_bytes = self._shard_bytes(m)
             diff = diff_mappings(
                 m,
                 {pid: up for pid, (up, _p) in prev_maps.items()},
                 {pid: up for pid, (up, _p) in mappings.items()},
-                shard_bytes=self._shard_bytes(m),
+                shard_bytes=shard_bytes,
             )
             diff["from_epoch"] = prev_epoch
             diff["to_epoch"] = m.epoch
@@ -117,6 +119,8 @@ class PlacementModule(MgrModule):
             self._stats["scans"] += 1
             if diff is not None:
                 self._last_diff = diff
+                # the pool stats the forecast weighed its shards by
+                self._last_shard_bytes = shard_bytes
                 self._diff_ts = now
                 self._stats["epochs_diffed"] += 1
                 self._stats["pgs_remapped_total"] += diff["pgs_remapped"]

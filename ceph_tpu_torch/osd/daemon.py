@@ -426,6 +426,10 @@ class OSD(
         # PerfCounters so the labeled rows ride perf dump ->
         # MMgrReport -> prometheus as ceph_recovery_*{pool,codec}
         self.recovery_acct = cct.perf.add(RecoveryAccounting())
+        # why a rebuild's planned repair read gave way to the broad
+        # gather: reason -> count (recovery.py, _plan_bail)
+        self.plan_bailouts: dict[str, int] = {}
+        self._bail_lock = threading.Lock()
         # consecutive _recover_pg failures per PG (satellite: a PG
         # failing every tick must surface in RECOVERY_STALLED, not
         # scroll away in logs); pgid -> [count, last_error], under

@@ -24,18 +24,19 @@ from ..osd.osdmap import PG_POOL_ERASURE, object_ps
 from .pg import CLONE_SEP, MUTATING_OPS
 
 
+#: replies the Objecter answers by resending the op under the same reqid
+#: (EAGAIN: not active or behind the client's map; ESTALE: wrong
+#: primary): the op did not run, and counting it would count its bytes
+#: again when the resend lands
+RESENT_RETVALS = (-11, -116)
+
+
 class PrimaryOpsMixin:
     # -- client ops (primary) ---------------------------------------------
     def _handle_client_op(self, conn, msg: MOSDOp) -> None:
         t0 = time.perf_counter()
         self.logger.inc("op")
-        wr_bytes = 0
-        if msg.op == "write_full":
-            self.logger.inc("op_w")
-            wr_bytes = len(msg.data or "") * 3 // 4
-            self.logger.inc("op_w_bytes", wr_bytes)
-        elif msg.op == "read":
-            self.logger.inc("op_r")
+        wr_bytes = len(msg.data or "") * 3 // 4 if msg.op == "write_full" else 0
         tracked = self.op_tracker.create(
             f"osd_op({msg.op} {msg.pool}.{msg.oid} tid={msg.tid})"
         )
@@ -86,9 +87,15 @@ class PrimaryOpsMixin:
                        retval=reply.retval if reply is not None else None)
             if TRACER.enabled and tracked.trace_id is not None:
                 self._maybe_tail_promote(tracked)
+        ran = reply.retval not in RESENT_RETVALS
+        if ran and msg.op == "write_full":
+            self.logger.inc("op_w")
+            self.logger.inc("op_w_bytes", wr_bytes)
+        elif ran and msg.op == "read":
+            self.logger.inc("op_r")
         if msg.op == "read" and reply.retval == 0 and reply.data:
             self.logger.inc("op_r_bytes", len(reply.data) * 3 // 4)
-        if self.io_acct is not None:
+        if self.io_acct is not None and ran:
             nbytes = wr_bytes
             if msg.op == "read" and reply.retval == 0 and reply.data:
                 nbytes = len(reply.data) * 3 // 4

@@ -7,6 +7,7 @@ the tier front-end invoking the replicated backend) resolve on self.
 from __future__ import annotations
 
 
+import functools
 import time
 
 import numpy as np
@@ -1057,8 +1058,9 @@ class RecoveryMixin:
         arbitration; this path only claims the healthy common case,
         which is where the bandwidth goes (arXiv:1412.3022)."""
         my_shard = acting.index(self.id)
+        bail = functools.partial(self._plan_bail, pg, oid, lost)
         if lost == my_shard:
-            return None  # self-heal: no local generation/size anchor
+            return bail("self-heal")  # no local generation/size anchor
         my_cid = self._cid(pg.pgid, my_shard)
         try:
             failpoint("osd.ec.shard_read", cct=self.cct,
@@ -1068,29 +1070,30 @@ class RecoveryMixin:
         except FailpointCrash:
             raise
         except (FailpointError, NotFound, KeyError):
-            return None
+            return bail("own chunk unreadable")
         try:
             stored = int(self.store.getattr(my_cid, oid, "hinfo"))
         except (NotFound, KeyError, ValueError):
             stored = None
         if not mine or (stored is not None and crc32c(mine) != stored):
-            return None
+            return bail("own chunk empty or corrupt")
         my_ver = self._stored_ver(my_cid, oid)
         target = floor
         if my_ver is not None:
             if floor is not None and my_ver != floor:
-                return None  # our own chunk is off-generation
+                # our own chunk is off-generation
+                return bail("own chunk off the log floor")
             target = my_ver
         try:
             size = int(self.store.getattr(my_cid, oid, "size"))
         except (NotFound, KeyError, ValueError):
-            return None
+            return bail("own size unknown")
         avail = {
             s for s, o in enumerate(acting)
             if o >= 0 and s != lost and self.osdmap.is_up(o)
         } - (exclude or set())
         if my_shard not in avail:
-            return None
+            return bail("own shard excluded")
         plan = None
         if bool(self.cct.conf.get("osd_repair_cost_aware")):
             # cost-aware helper choice (cephstorm; ROADMAP repair
@@ -1115,9 +1118,10 @@ class RecoveryMixin:
             try:
                 plan = codec.minimum_to_decode({lost}, avail)
             except Exception:
-                return None
+                return bail("no plan from the available shards")
         if lost in plan:
-            return None  # plan wants the lost chunk itself: nonsense here
+            # plan wants the lost chunk itself: nonsense here
+            return bail("plan reads the lost shard")
         helpers = sorted(plan)
         full_plan = all(
             len(r) == 1 and tuple(r[0]) == (0, -1)
@@ -1145,16 +1149,17 @@ class RecoveryMixin:
             vers=vers, stray=False)
         if my_shard in helpers:
             got[my_shard] = mine
+        bail = functools.partial(self._plan_bail, pg, oid, lost)
         if set(got) != set(helpers):
-            return None  # a planned helper went silent: fall back
+            return bail("a planned helper is silent")
         for v in vers.values():
             if v is not None and v != target:
                 if target is None:
                     target = v
                 else:
-                    return None  # mixed generations: fall back
+                    return bail("mixed generations")
         if any(len(b) != len(mine) for b in got.values()):
-            return None
+            return bail("a helper's chunk has another size")
         chunks = {s: np.frombuffer(bytes(b), np.uint8)
                   for s, b in got.items()}
         # the data conditions that send this rebuild to the broad gather
@@ -1165,7 +1170,8 @@ class RecoveryMixin:
         try:
             dec = codec.decode({lost}, chunks, len(mine))
         except InsufficientChunks:
-            return None  # the plan's helpers cannot decode: broad gather
+            # the plan's helpers cannot decode: broad gather
+            return bail("the planned helpers cannot decode")
         out = to_host(dec[lost]).tobytes()
         nbytes = sum(len(b) for b in got.values())
         return out, size, len(got), nbytes
@@ -1178,12 +1184,13 @@ class RecoveryMixin:
         server-side) and rebuild through the codec's cached repair
         matrix: the live d/q-of-a-chunk repair bandwidth the bench
         measured offline, now on the recovery path."""
+        bail = functools.partial(self._plan_bail, pg, oid, lost)
         if not hasattr(codec, "repair_matrix"):
-            return None
+            return bail("no repair matrix")
         Z = codec.get_sub_chunk_count()
         chunk_size = len(mine)
         if Z <= 1 or chunk_size % Z:
-            return None
+            return bail("sub-chunk geometry")
         sub_len = chunk_size // Z
         nB = len(codec.repair_planes(lost))
         fetched: dict[int, np.ndarray] = {}
@@ -1203,15 +1210,15 @@ class RecoveryMixin:
                 buf, ver = self._fetch_shard_ranges(
                     pg, acting, h, oid, byte_ranges)
             if buf is None or len(buf) != want_len:
-                return None
+                return bail("a planned helper is silent")
             if ver is not None:
                 if target is None:
                     target = ver
                 elif ver != target:
-                    return None  # stale-generation helper: fall back
+                    return bail("mixed generations")  # stale helper
             rows = np.frombuffer(buf, np.uint8).reshape(-1, sub_len)
             if rows.shape[0] not in (nB, Z):
-                return None
+                return bail("a helper's ranges have another size")
             if rows.shape[0] == Z:
                 # a full-chunk helper (want&avail merge case): slice
                 # its repair planes for the stacked input
@@ -1245,6 +1252,16 @@ class RecoveryMixin:
                 POOL.release(x_dev)
         chunk = out.reshape(Z * sub_len).tobytes()
         return chunk, size, len(helpers), bytes_read
+
+    def _plan_bail(self, pg, oid: str, lost: int, reason: str) -> None:
+        """Count and log why a rebuild's planned repair read gave way to
+        the broad gather (``plan_bailouts``, reason -> count); returns
+        None, _plan_repair_read's answer for it."""
+        with self._bail_lock:
+            self.plan_bailouts[reason] = self.plan_bailouts.get(reason, 0) + 1
+        self.cct.dout("osd", 5, f"{self.whoami} recovery: {pg.pgid}/{oid} shard "
+                      f"{lost}: no planned repair read ({reason}); broad gather")
+        return None
 
     def _fetch_shard_ranges(self, pg, acting, shard: int, oid: str,
                             byte_ranges: list[tuple[int, int]]):

@@ -120,9 +120,10 @@ class _FlushRef:
         # consumed the parent yet): the copy into pinned host memory is
         # queued behind K1 on the flusher's stream, and the elected
         # fetcher only waits for it to land (the event; None on the
-        # CPU, where the copy is synchronous).  Each op copies its own
-        # window out (_commit_fetch), so the pinned block goes back to
-        # torch's host cache once the flush's last op has committed
+        # CPU, where the copy is synchronous).  Each op's parity is a
+        # view of its window (_commit_fetch), as on the pool-off path,
+        # so the pinned block goes back to torch's host cache once the
+        # flush's last op has dropped its parity
         cuda = parent.is_cuda
         self._landing = torch.empty(parent.shape, dtype=parent.dtype,
                                     pin_memory=cuda)
@@ -535,8 +536,12 @@ class WriteBatcher:
     def _commit_fetch(self, dp: _DevParity) -> np.ndarray:
         """Materialize one op's device-resident parity (the deliberate
         commit sync): the flush's shared fetch runs at most once; this
-        op then copies its own column window out of the pinned landing
-        buffer."""
+        op's parity is then a view of its column window of the pinned
+        landing buffer, as the reference's is.  (A copy per op, which
+        released the pinned block sooner, cost the pooled flush its
+        throughput on the card at 4 KiB stripes: 16 ops' copies
+        serialize on the interpreter lock behind every flush;
+        port_runs/device_pool_turns.py --view.)"""
         t0 = time.perf_counter()
         full, fetched = dp.ref.fetch()
         if fetched and TELEMETRY.enabled:
@@ -549,7 +554,7 @@ class WriteBatcher:
                 time.perf_counter() - t0,
                 bytes_out=dp.ref.fetch_bytes, synced=True,
                 host_copy_bytes=dp.ref.fetch_bytes)
-        return full[:, dp.c0:dp.c1].copy()
+        return full[:, dp.c0:dp.c1]
 
     def _inline(self, mat: np.ndarray, chunks: np.ndarray,
                 tctx=None, tracked=None,

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main paths once on one GPU: the
 erasure-code data plane, batched CRUSH placement, the OSD's write and
-read batchers, the OSDMap's pool-wide PG mapping, and a cluster of
-monitors and OSDs serving librados clients.
+read batchers, the OSDMap's pool-wide PG mapping, a cluster of
+monitors and OSDs serving librados clients, the mgr, and the bench
+drivers with the qa smokes they feed.
 
     python3 chip_smoke.py            (from the repo root; needs one CUDA card)
 
@@ -86,6 +87,21 @@ K3, an active balancer pass whose upmaps commit in a new epoch, and
 `ceph -s` from the mgr's digest; last, qa/recovery_smoke.py on cuda with
 the failure detector at its default grace, which must exit 0.
 
+The bench drivers and the smokes they feed (phases 33-38):
+bench/baseline.py runs BASELINE configs 1-5 on the card (RS(2,1) and
+RS(8,4) chained encodes on K1, the SHEC(6,3,2) decode on K1, the
+CLAY(8,4,d=11) repair on K2, the 10M-object remap on K3) with the traffic
+column, each chain held against the numpy codec and the plain version
+and the remap against the C++ oracle on its 1M batch; the
+ceph_erasure_code_benchmark CLI (bench/ec_bench.py) encodes, decodes and
+streams with K1 (decoded and streamed bytes checked); crush_bench
+--backend both maps 10M PGs on K3, bit-exact against the oracle's 1M;
+bench/traffic.py's write and read scenarios run batched against one
+launch an op; then qa/read_smoke, device_pool_smoke and qos_smoke, and
+qa/placement_smoke, health_smoke and accounting_smoke, one cluster at a
+time, each of which must exit 0 with its gates.  Each phase logs its
+wall time.
+
 For each path the launch counters are set to 0 just before it and read
 just after, and every kernel of the path must have launched; K3's draws
 on the placement and OSDMap paths must use the magic reciprocals their
@@ -126,10 +142,6 @@ from types import SimpleNamespace
 import numpy as np
 
 SEED = 20261017
-#: GPU clock cycles torch.cuda._sleep spins for a millisecond's hold (at
-#: the H100's 1980 MHz boost, or longer at a lower clock), and the longest hold
-SLEEP_CYCLES_PER_MS = 2_000_000
-MAX_HOLD_MS = 3000.0
 #: H100 SXM peak HBM bytes/s (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
 OBJECTS = 256
@@ -182,37 +194,12 @@ def rand_bytes(torch, shape, seed: int, device):
 
 def time_ms(torch, fn, iters: int, warmup: int = 2, label: str | None = None
             ) -> tuple[float, float]:
-    """(device ms, host ms) of one call: the median over `iters` calls of
-    the CUDA events around each call, and of time.perf_counter around it.
+    """(device ms, host ms) of one call: ceph_tpu_torch/bench/timing.py's
+    timer, the one the port's benchmarks share (CUDA events, the stream
+    held until every timed call is enqueued)."""
+    from ceph_tpu_torch.bench.timing import time_ms as timer
 
-    A torch.cuda._sleep ahead of the first event holds the stream until
-    the host has enqueued every timed call (twice the last warm-up's host
-    time each, and a millisecond), so the events bracket the device's work
-    alone and not the wrapper's host work; the host time is on its own
-    line when `label` is given."""
-    host_s = 0.0
-    for _ in range(warmup):
-        t0 = time.perf_counter()
-        fn()
-        host_s = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    ev = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-          for _ in range(iters)]
-    hold_ms = min(2 * iters * host_s * 1e3 + 1.0, MAX_HOLD_MS)
-    torch.cuda._sleep(int(hold_ms * SLEEP_CYCLES_PER_MS))
-    host = []
-    for a, b in ev:
-        t0 = time.perf_counter()
-        a.record()
-        fn()
-        b.record()
-        host.append(time.perf_counter() - t0)
-    torch.cuda.synchronize()
-    dev_ms = float(np.median([a.elapsed_time(b) for a, b in ev]))
-    host_ms = float(np.median(host)) * 1e3
-    if label:
-        log(f"    host time of {label}: {host_ms:.4f} ms per call (device {dev_ms:.4f} ms)")
-    return dev_ms, host_ms
+    return timer(torch, fn, iters, warmup, label)
 
 
 def bound_ms(rows: int, n: int, L: int) -> float:
@@ -1674,12 +1661,18 @@ def cluster_slice(torch, dev, card: str, smi: str) -> list[dict]:
             check(cio.read(coid[i]) == objs[i], f"phase 28: {coid[i]} reads back wrong")
         clay_read = a1["bytes_read"] - a0["bytes_read"]
         chunk = len(next(iter(before.values())))
+        # why a rebuild took the broad gather (osd/recovery.py _plan_bail)
+        bailouts: dict = {}
+        for osd in c.osds.values():
+            for reason, n in osd.plan_bailouts.items():
+                bailouts[reason] = bailouts.get(reason, 0) + n
         log(f"[28 CLAY(8,4,d=11)] pool peered in {peer_s['clay84']:.1f} s, "
             f"{pg_num - len(full_pgs)} of its {pg_num} PGs with a slot left empty; "
             f"{n_clay} x {obj_bytes >> 20} MiB written "
             f"({rate(cw_lat, cw_wall, n_clay * obj_bytes)}); osd.{clay_victim} back empty, "
             f"clean in {clay_s:.2f} s: {len(before)} shards of {chunk} B, {reps} rebuilds "
-            f"({reps - gathers} planned, {gathers} broad gathers), {helper_reads} helper reads, "
+            f"({reps - gathers} planned, {gathers} broad gathers; planned reads not taken, "
+            f"since the cluster started: {bailouts}), {helper_reads} helper reads, "
             f"{clay_read / 2**20:.2f} MiB read against {reps * k * chunk / 2**20:.2f} MiB for "
             f"full-decode repairs ({clay_read / (reps * k * chunk):.3f}); launches "
             f"{per_phase[28]}")
@@ -2159,6 +2152,220 @@ def recovery_smoke_slice(torch, dev, card: str, smi: str) -> list[dict]:
                  f"[{n}, {L}]",
         "card": card, "nvidia_smi": smi}]
 
+def gf_row(torch, dev, mat, x, launches: int, shape: str, card: str, smi: str,
+           phase: int) -> dict:
+    """One K1 or K2 row of the kernels line at a route's shape: the
+    kernel against its plain version on `x`, both timed."""
+    from ceph_tpu_torch.ops import gf_kernels
+    from ceph_tpu_torch.ops.bitplane import TABLES
+    from ceph_tpu_torch.ops.gf_kernels import apply_matrix_plain, gf_apply, kernel_for
+
+    rows, n = mat.shape
+    L = x.shape[1]
+    name = kernel_for(rows, n)
+    tables = TABLES.get(mat, dev)
+    err = max_err(torch, gf_apply(mat, [x], tables=tables), apply_matrix_plain(mat, x))
+    check(err == 0, f"phase {phase}: {name} {list(mat.shape)} x {L} disagrees with the "
+                    f"plain version")
+    ms, host_ms = time_ms(torch, gf_kernels.prepare(mat, [x], tables), iters=20)
+    plain_ms, _ = time_ms(torch, lambda: apply_matrix_plain(mat, x), iters=3, warmup=1)
+    bound = bound_ms(rows, n, L)
+    tc = {"tc_floor_ms": tc_floor_ms(rows, n, L)} if name == "gf_apply_k2" else {}
+    log(f"[{phase} {name}] {shape}: {ms:.4f} ms, bound {bound:.6f} ms by bytes"
+        + (f", tensor-core floor {tc['tc_floor_ms']:.4f} ms" if tc else "")
+        + f", plain {plain_ms:.3f} ms, {launches} launches")
+    return {
+        "name": name, "route": "cuda", "source": "ceph_tpu_torch/csrc/gf_apply.cu",
+        "replaces": ("ceph_tpu/ops/pallas_gf.py:184" if name == "gf_apply_k1"
+                     else "ceph_tpu/ops/pallas_gf.py:202"),
+        "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound, "bound_by": "bytes", "library_ms": None, "host_ms": host_ms,
+        "shape": shape, "card": card, "nvidia_smi": smi, **tc}
+
+
+def counted(torch, fn):
+    """(fn's result, the K1/K2/K3 launches it made, its wall seconds),
+    the counts set to 0 just before it and read just after."""
+    from ceph_tpu_torch.ops import crush_kernels, gf_kernels
+
+    gf_kernels.reset_launch_counts()
+    crush_kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {**gf_kernels.LAUNCHES, **crush_kernels.LAUNCHES}
+    return out, launches, wall
+
+
+def quiet_main(main, argv: list[str]) -> tuple[int, str]:
+    """(exit code, standard output) of a CLI main run in this process."""
+    import contextlib
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    return rc, buf.getvalue()
+
+
+def baseline_slice(torch, dev, card: str, smi: str) -> list[dict]:
+    """Phase 33: bench/baseline.py, BASELINE configs 1-5 and the traffic
+    column on the card (each chain held against the numpy codec and the
+    plain version, the 10M remap against the C++ oracle on its 1M
+    batch, inside baseline.run, which raises on a difference)."""
+    from ceph_tpu_torch.bench import baseline
+
+    res, launches, wall = counted(torch, lambda: baseline.run(dev))
+    for c in res["configs"]:
+        if c["config"] == 5:
+            log(f"[33 config 5] {c['name']}: {c['maps_per_s']:.0f} maps/s "
+                f"({c['seconds']:.3f} s, host clock), bit-exact against the oracle on "
+                f"{c['oracle_checked']} xs; oracle {c['cpu_oracle_maps_per_s']:.0f} maps/s "
+                f"(host); byte bound {c['bound_maps_per_s']:.3e} maps/s")
+        else:
+            log(f"[33 config {c['config']}] {c['name']} {c['shape']}: {c['gibps']:.2f} GiB/s "
+                f"({c['clock']}, {c['iterations']} chained), byte bound "
+                f"{c['bound_gibps']:.2f} GiB/s, CPU oracle {c['cpu_oracle_gibps']:.3f} GiB/s"
+                + (f", repair reads {c['repair_bw_frac_of_naive']:.4f} of a full decode"
+                   if "repair_bw_frac_of_naive" in c else "")
+                + (f", reads {c['reads_chunks']} chunks" if "reads_chunks" in c else ""))
+    t = res["traffic"]
+    log(f"[33 traffic] batched {t['traffic_batched_gibps']} GiB/s against per-op "
+        f"{t['traffic_perop_gibps']} ({t['traffic_batch_speedup']}x), p50/p99 "
+        f"{t['traffic_batched_p50_ms']}/{t['traffic_batched_p99_ms']} ms against "
+        f"{t['traffic_perop_p50_ms']}/{t['traffic_perop_p99_ms']} ms")
+    log(f"[33 baseline] {wall:.1f} s on {res['card']}; launches {launches}")
+    check(res["card"]["name"] == card, f"phase 33: card {res['card']} != {card}")
+    for k in ("gf_apply_k1", "gf_apply_k2", "crush_straw2_k3"):
+        check(launches[k] > 0, f"phase 33: {k} was not launched")
+    from ceph_tpu_torch.gf.matrix import vandermonde_coding_matrix
+
+    coding21 = np.ascontiguousarray(vandermonde_coding_matrix(2, 1), np.uint8)
+    M, _chunk, sub_len, _helpers, _clay = baseline.clay_setup(dev)
+    return [
+        gf_row(torch, dev, coding21, rand_bytes(torch, (2, 64 << 20), SEED + 33, dev),
+               launches["gf_apply_k1"], "config 1 (phase 33): RS(2,1) reed_sol_van chained "
+               "encode [1, 2] x 67108864", card, smi, 33),
+        gf_row(torch, dev, M, rand_bytes(torch, (M.shape[1], sub_len), SEED + 34, dev),
+               launches["gf_apply_k2"], f"config 4 (phase 33): CLAY(8,4,d=11) chained "
+               f"repair [64, 176] x {sub_len}", card, smi, 33),
+    ]
+
+
+def ec_bench_slice(torch, dev) -> None:
+    """Phase 34: the ceph_erasure_code_benchmark CLI on the card: a
+    chained RS(8,4) encode, random double-erasure decodes (every decode
+    returns the data) and a streamed encode (every batch's parity equals
+    the numpy codec's), with K1's launches counted."""
+    from ceph_tpu_torch.bench import ec_bench
+    from ceph_tpu_torch.gf.reference_codec import encode_chunks as ref_encode
+
+    prof = ["-P", "torch", "-p", "k=8", "-p", "m=4", "-p", "technique=cauchy_good"]
+    runs = (("encode", ["-s", "1048576", "-i", "64"]),
+            ("decode", ["-s", "1048576", "-i", "16", "-e", "2"]),
+            ("encode", ["-s", "4194304", "--stream", "16"]))
+    for workload, extra in runs:
+        (rc, out), launches, wall = counted(torch, lambda: quiet_main(
+            ec_bench.main, [workload, *prof, *extra, "--json"]))
+        res = json.loads(out)
+        last = ec_bench.LAST_RESULT
+        check(rc == 0, f"phase 34: ec_bench {workload} {extra} exited {rc}")
+        k1 = launches["gf_apply_k1"]
+        if workload == "decode":
+            rng = np.random.default_rng(0)
+            data = rng.integers(0, 256, (8, len(last["decoded"][0])), dtype=np.uint8)
+            for j in range(8):
+                check(np.array_equal(last["decoded"][j].cpu().numpy(), data[j]),
+                      f"phase 34: decoded chunk {j} differs")
+        elif "--stream" in extra:
+            rng = np.random.default_rng(0)
+            L = last["parity"][0].shape[1]
+            coding = ec_bench.build_codec(ec_bench.parse_args(
+                [workload, *prof, "--device", "cpu"]))[0].coding
+            rng.integers(0, 256, (8, L), dtype=np.uint8)
+            for i, parity in enumerate(last["parity"]):
+                batch = rng.integers(0, 256, (8, L), dtype=np.uint8)
+                check(np.array_equal(parity, ref_encode(coding, batch)),
+                      f"phase 34: streamed batch {i}'s parity differs")
+            check(k1 >= 16, f"phase 34: {k1} K1 launches for 16 streamed batches")
+        else:
+            check(k1 >= 64, f"phase 34: {k1} K1 launches for 64 chained encodes")
+        log(f"[34 ec_bench {workload}{' --stream' if '--stream' in extra else ''}] "
+            f"{res['GiB_per_s']} GiB/s ({res['clock']}, {res['bytes']} bytes in "
+            f"{res['seconds']} s), K1 launches {k1}, wall {wall:.1f} s")
+
+
+def crush_bench_slice(torch, dev) -> None:
+    """Phase 35: crush_bench --backend both at 10M PGs on the card: the
+    oracle's whole 1M batch equal to the card's first 1M placements."""
+    from ceph_tpu_torch.bench import crush_bench
+
+    (rc, out), launches, wall = counted(torch, lambda: quiet_main(
+        crush_bench.main, ["--num-pgs", str(REMAP_OBJECTS), "--backend", "both", "--json"]))
+    res = json.loads(out)
+    check(rc == 0 and res["bit_exact_vs_oracle"] is True
+          and res["oracle_compared"] == crush_bench.ORACLE_CAP,
+          f"phase 35: crush_bench not bit-exact against the oracle: {res}")
+    check(launches["crush_straw2_k3"] > 0, "phase 35: K3 was not launched")
+    log(f"[35 crush_bench] {REMAP_OBJECTS} PGs: {res['torch_maps_per_s']} maps/s on the card "
+        f"(host clock), oracle {res['oracle_maps_per_s']} maps/s on the host, bit-exact on "
+        f"{res['oracle_compared']}; K3 launches {launches['crush_straw2_k3']}, wall {wall:.1f} s")
+
+
+def traffic_slice(torch, dev, card: str, smi: str) -> list[dict]:
+    """Phase 36: bench/traffic.py's write and read scenarios on the card
+    (32 clients, batched against one launch an op)."""
+    from ceph_tpu_torch.bench import traffic
+    from ceph_tpu_torch.gf.matrix import cauchy_good_coding_matrix
+
+    w, wl, wwall = counted(torch, lambda: traffic.run_scenario(
+        n_clients=32, seconds=3.0, write_size=4096, device=dev))
+    r, rl, rwall = counted(torch, lambda: traffic.run_read_scenario(
+        n_clients=32, seconds=2.0, read_size=1024, device=dev))
+    log(f"[36 write traffic] 32 clients x 4 KiB RS(8,4): batched "
+        f"{w['traffic_batched_gibps']} GiB/s, p50/p99 {w['traffic_batched_p50_ms']}/"
+        f"{w['traffic_batched_p99_ms']} ms ({w['traffic_stripes_per_flush']} stripes a flush); "
+        f"per-op {w['traffic_perop_gibps']} GiB/s, p50/p99 {w['traffic_perop_p50_ms']}/"
+        f"{w['traffic_perop_p99_ms']} ms; speedup {w['traffic_batch_speedup']}x; "
+        f"K1 launches {wl['gf_apply_k1']} ({w['traffic_batched_ops'] + w['traffic_perop_ops']} "
+        f"ops), wall {wwall:.1f} s")
+    log(f"[36 read traffic] 32 clients x 1 KiB RS(4,2) degraded: batched "
+        f"{r['read_batched_gibps']} GiB/s, p50/p99 {r['read_batched_p50_ms']}/"
+        f"{r['read_batched_p99_ms']} ms ({r['read_ops_per_flush']} ops a flush); per-op "
+        f"{r['read_perop_gibps']} GiB/s, p50/p99 {r['read_perop_p50_ms']}/"
+        f"{r['read_perop_p99_ms']} ms; speedup {r['read_batch_speedup']}x; K1 launches "
+        f"{rl['gf_apply_k1']}, wall {rwall:.1f} s")
+    check(wl["gf_apply_k1"] > 0 and rl["gf_apply_k1"] > 0, "phase 36: K1 was not launched")
+    check(w["traffic_batched_ops"] > 0 and w["traffic_perop_ops"] > 0
+          and r["read_batched_ops"] > 0 and r["read_perop_ops"] > 0,
+          "phase 36: a traffic mode completed no op")
+    coding = np.ascontiguousarray(cauchy_good_coding_matrix(8, 4), np.uint8)
+    L = traffic._chunk_len(4096, 8)
+    return [gf_row(torch, dev, coding, rand_bytes(torch, (8, L), SEED + 36, dev),
+                   wl["gf_apply_k1"], f"per-op write (phase 36): one 4 KiB RS(8,4) stripe "
+                   f"[8, {L}]", card, smi, 36)]
+
+
+def smokes_slice(torch, phase: int, names: tuple[str, ...]) -> None:
+    """Phases 37 and 38: qa smokes on the card, one after the other; each
+    must exit 0 with its reference gates."""
+    import importlib
+
+    for name in names:
+        mod = importlib.import_module(f"ceph_tpu_torch.qa.{name}")
+        (rc, out), launches, wall = counted(torch, lambda: quiet_main(
+            mod.main, ["--device", "cuda"]))
+        summary = json.loads(out[out.index("{"):])
+        log(f"[{phase} {name}] exit {rc} in {wall:.1f} s; launches "
+            f"K1 {launches['gf_apply_k1']}, K2 {launches['gf_apply_k2']}, K3 "
+            f"{launches['crush_straw2_k3']}: {json.dumps(summary, default=str)[:1500]}")
+        check(rc == 0, f"phase {phase}: {name} failed: {summary.get('problems')}")
+        if name in ("read_smoke", "device_pool_smoke", "qos_smoke", "accounting_smoke"):
+            check(launches["gf_apply_k1"] > 0, f"phase {phase}: {name} did not launch K1")
+        if name == "placement_smoke":
+            check(launches["crush_straw2_k3"] > 0, f"phase {phase}: {name} did not launch K3")
+
+
 
 def main() -> int:
     import torch
@@ -2394,6 +2601,25 @@ def main() -> int:
     kernels += mgr_placement_slice(torch, dev, card, smi, om)
     kernels += mgr_cluster_slice(torch, dev, card, smi, om.sass)
     kernels += recovery_smoke_slice(torch, dev, card, smi)
+    log(f"[1-32] {time.perf_counter() - t_start:.1f} s")
+    t0 = time.perf_counter()
+    kernels += baseline_slice(torch, dev, card, smi)
+    log(f"[33 wall] {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    ec_bench_slice(torch, dev)
+    log(f"[34 wall] {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    crush_bench_slice(torch, dev)
+    log(f"[35 wall] {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    kernels += traffic_slice(torch, dev, card, smi)
+    log(f"[36 wall] {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    smokes_slice(torch, 37, ("read_smoke", "device_pool_smoke", "qos_smoke"))
+    log(f"[37 wall] {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    smokes_slice(torch, 38, ("placement_smoke", "health_smoke", "accounting_smoke"))
+    log(f"[38 wall] {time.perf_counter() - t0:.1f} s")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

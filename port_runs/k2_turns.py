@@ -90,16 +90,11 @@ def loop_per_imma(label: str, library: Path) -> None:
 
 
 def time_ms(fn, iters: int = 30) -> float:
-    for _ in range(3):
-        fn()
-    ev = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-          for _ in range(iters)]
-    for a, b in ev:
-        a.record()
-        fn()
-        b.record()
-    torch.cuda.synchronize()
-    return float(np.median([a.elapsed_time(b) for a, b in ev]))
+    """Median device ms of `fn` by the port's one timer
+    (ceph_tpu_torch/bench/timing.py)."""
+    from ceph_tpu_torch.bench.timing import time_ms as timer
+
+    return timer(torch, fn, iters, warmup=3)[0]
 
 
 def old_tables(mat: np.ndarray) -> np.ndarray:

@@ -496,3 +496,29 @@ def test_batchers_on_the_card(cuda, pool):
     assert gf_kernels.LAUNCHES["gf_apply_k1"] == before + 1
     for x, out in zip(xs, got):
         np.testing.assert_array_equal(out, x)
+
+
+@pytest.mark.parametrize("rows,n,L,iters", [
+    (4, 8, 3001, 7), (1, 2, 65537, 5), (1, 4, 4099, 3),   # K1: RS(8,4), RS(2,1), SHEC
+    (64, 176, 1030, 4), (17, 65, 256, 3),                  # K2: CLAY's repair, ragged
+])
+def test_chained_encode_matches_the_plain_chain(cuda, rows, n, L, iters):
+    """bench/timing.py's chain on the card (one staged K1 or K2 launch an
+    iteration, kernel_for choosing) against the same chain of the plain
+    version, and time_chained_encode labels its clock cuda."""
+    from ceph_tpu_torch.bench.timing import make_chained_encode, time_chained_encode
+
+    rng = np.random.default_rng(rows * 100 + n)
+    mat = _rand(rng, (rows, n))
+    x = _rand(rng, (n, L))
+    k1 = gf_kernels.LAUNCHES[kernel_for(rows, n)]
+    loop, prep = make_chained_encode(mat, device=cuda)
+    got = loop(prep(x), iters)
+    torch.cuda.synchronize()
+    assert gf_kernels.LAUNCHES[kernel_for(rows, n)] == k1 + iters
+    want = torch.from_numpy(x).to(cuda)
+    for _ in range(iters):
+        want[:rows] ^= apply_matrix_plain(mat, want)
+    assert torch.equal(got, want)
+    t = time_chained_encode(mat, x, iters, device=cuda, subtract_overhead=True, repeats=2)
+    assert t.device == "cuda" and t.seconds > 0

@@ -42,6 +42,12 @@ def test_every_module_imports_with_jax_blocked():
     assert proc.returncode == 0, proc.stderr
     assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
     assert "ceph_tpu_torch.ops.gf_kernels" in names
+    # the bench drivers, the oracle bridge and the smokes they feed
+    assert {f"ceph_tpu_torch.{m}" for m in (
+        "crush.oracle_bridge", "bench.timing", "bench.ec_bench", "bench.crush_bench",
+        "bench.traffic", "bench.baseline", "qa.read_smoke", "qa.device_pool_smoke",
+        "qa.qos_smoke", "qa.placement_smoke", "qa.health_smoke",
+        "qa.accounting_smoke")} <= set(names)
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
